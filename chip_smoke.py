@@ -1,0 +1,533 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+  python3 chip_smoke.py              # needs one CUDA card
+
+Phases (each raises on failure, and the run then exits non-zero):
+  1. setup: card name and power limit, build every CUDA kernel from the
+     sources in the checkout (one nvcc per source, all at once), TF32 off;
+  2. kernels: each kernel against its plain PyTorch version on the card,
+     at hymba-1.5b's prefill shapes (ragged S and S > window included) and
+     at the JAX package's kernel-test cases, in bf16 and f32, with the
+     tolerances of those tests; kernel, plain and library times;
+  3. serve: a small f32 hybrid model on the card against the same model on
+     the CPU (plain versions), then hymba-1.5b at full width and depth with
+     seeded random bf16 weights served by ``ServeEngine`` (5 requests, 32
+     new tokens each), checking that every prefill launched both kernels
+     once per layer;
+  4. profile: device busy share and kernel time by group for one prefill
+     and for decode steps with every slot active (torch.profiler).
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
+PEAK_OPS_PER_S = {"bfloat16": 989e12,     # dense tensor-core rate
+                  "float32": 67e12}       # CUDA cores, no TF32
+TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
+       "ssd": {"float32": 1e-4, "bfloat16": 5e-2}}
+# kernel-test cases of the JAX package (tests/kernels/*.py)
+FA_CASES = [  # B, S, H, KV, hd, causal, window, cap
+    (1, 128, 2, 2, 32, True, 0, 0.0),
+    (2, 256, 4, 2, 16, True, 0, 0.0),
+    (1, 256, 4, 1, 32, True, 64, 0.0),
+    (2, 128, 2, 2, 64, True, 0, 50.0),
+    (1, 128, 4, 4, 32, False, 0, 0.0),
+    (1, 512, 8, 2, 64, True, 128, 30.0),
+]
+SSD_CASES = [  # B, S, H, P, N, chunk
+    (1, 64, 2, 16, 8, 16),
+    (2, 128, 3, 32, 16, 32),
+    (1, 256, 2, 64, 64, 64),
+]
+PROMPT_LENS = (256, 200, 384, 130, 64)
+MAX_NEW = 32
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def time_ms(fn, reps=20, warmup=3):
+    """Mean device time of one call, from CUDA events around ``reps``
+    back-to-back calls after ``warmup`` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, ops, dtype_name):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def compare(name, out, ref, dtype_name):
+    import torch
+    tol = TOL[name][dtype_name]
+    out, ref = out.float(), ref.float()
+    err = float((out - ref).abs().max())
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    if not torch.allclose(out, ref, atol=tol, rtol=tol):
+        raise AssertionError(f"{name}: max abs err {err} beyond tol {tol}")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+# ---------------------------------------------------------------------------
+def setup():
+    import torch
+    from repro_torch.kernels import _build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip().splitlines()[0])
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+    t = time.perf_counter()
+    logs = _build.build_all()
+    log(f"built kernels {sorted(logs) or 'none (cached)'} in "
+        f"{time.perf_counter() - t:.2f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("TF32 off for matmul and cuDNN (f32 plain versions run in full f32)")
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+# ---------------------------------------------------------------------------
+def _attn_pairs(S, causal, window):
+    """(q, k) pairs the masks keep at self-attention positions."""
+    if not causal:
+        return S * (S if window <= 0 else min(S, window))
+    if window <= 0:
+        return S * (S + 1) // 2
+    return sum(min(q + 1, window) for q in range(S))
+
+
+def check_flash(dev, gen):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    def mk(B, S, H, KV, hd, dtype):
+        q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, S, KV, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, S, KV, hd), generator=gen, device=dev).to(dtype)
+        return q, k, v
+
+    # hymba-1.5b prefill: 25 query heads, 5 KV heads of 64
+    hymba = [(1, S, 25, 5, 64, True, w, 0.0)
+             for S in (256, 200) for w in (0, 1024)]
+    hymba.append((1, 1536, 25, 5, 64, True, 1024, 0.0))
+    main_err, rec = 0.0, None
+    for tag, cases in (("hymba", hymba), ("jax-case", FA_CASES)):
+        for case in cases:
+            B, S, H, KV, hd, causal, window, cap = case
+            for dtype in (torch.bfloat16, torch.float32):
+                dn = str(dtype).split(".")[1]
+                q, k, v = mk(B, S, H, KV, hd, dtype)
+                kw = dict(causal=causal, window=window, cap=cap)
+                out = fak.flash_attention(q, k, v, **kw)
+                torch.cuda.synchronize()
+                ref = flash_attention_ref(q, k, v, **kw)
+                err = compare("flash_attention", out, ref, dn)
+                line = (f"flash_attention {tag} B={B} S={S} H={H} KV={KV} "
+                        f"hd={hd} causal={causal} window={window} cap={cap} "
+                        f"{dn}: max_abs_err {err:.3g}")
+                if tag == "hymba" and dtype == torch.bfloat16:
+                    main_err = max(main_err, err)
+                    ms = time_ms(lambda: fak.flash_attention(q, k, v, **kw))
+                    plain = time_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                                    reps=5)
+                    G = H // KV
+                    qh = q.transpose(1, 2)
+                    kh = k.repeat_interleave(G, dim=2).transpose(1, 2)
+                    vh = v.repeat_interleave(G, dim=2).transpose(1, 2)
+                    if window > 0 and window < S:
+                        i = torch.arange(S, device=dev)
+                        mask = (i[None, :] <= i[:, None]) & \
+                            (i[:, None] - i[None, :] < window)
+                        sdpa = lambda: F.scaled_dot_product_attention(  # noqa
+                            qh, kh, vh, attn_mask=mask)
+                    else:
+                        sdpa = lambda: F.scaled_dot_product_attention(  # noqa
+                            qh, kh, vh, is_causal=True)
+                    lib = time_ms(sdpa)
+                    ops = 4 * B * H * hd * _attn_pairs(S, causal, window)
+                    b_ms, b_by = bound(nbytes(q, k, v, out), ops, dn)
+                    line += (f", kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                             f"sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
+                             f"({b_by})")
+                    if S == 256 and window == 1024:
+                        rec = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                   bound_ms=b_ms, bound_by=b_by)
+                log(line)
+    rec["max_abs_err"] = main_err
+    return rec
+
+
+def _ssd_ops(B, S, H, P, N, chunk):
+    """Operations of the chunked form at these shapes (per step pair inside
+    a chunk: C.B, decay, dt and the P-wide product; per step: the
+    inter-chunk read and the state update)."""
+    ops = 0
+    for c0 in range(0, S, chunk):
+        ln = min(chunk, S - c0)
+        pairs = ln * (ln + 1) // 2
+        ops += pairs * (2 * N + 3 + 2 * P) + ln * (2 * N * P + 2 * P) \
+            + ln * (2 * P * N + 2) + 2 * P * N
+    return B * H * ops
+
+
+def check_ssd(dev, gen):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd import kernel as ssdk
+    from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_ref
+
+    def mk(B, S, H, P, N, dtype):
+        xs = torch.randn((B, S, H, P), generator=gen, device=dev).to(dtype)
+        dt = F.softplus(torch.randn((B, S, H), generator=gen, device=dev)
+                        - 1.0)
+        A = -torch.exp(torch.randn((H,), generator=gen, device=dev) * 0.3)
+        B_ = torch.randn((B, S, N), generator=gen, device=dev).to(dtype)
+        C_ = torch.randn((B, S, N), generator=gen, device=dev).to(dtype)
+        return xs, dt, A, B_, C_
+
+    # hymba-1.5b prefill: 50 heads, P=64, N=16, chunk 128
+    hymba = [(1, S, 50, 64, 16, 128) for S in (256, 200)]
+    main_err, rec = 0.0, None
+    for tag, cases in (("hymba", hymba), ("jax-case", SSD_CASES)):
+        for case in cases:
+            B, S, H, P, N, chunk = case
+            for dtype in (torch.bfloat16, torch.float32):
+                dn = str(dtype).split(".")[1]
+                args = mk(B, S, H, P, N, dtype)
+                y, hT = ssdk.ssd(*args, chunk=chunk)
+                torch.cuda.synchronize()
+                y_ref, h_ref = ssd_chunked(*args, chunk)
+                err = max(compare("ssd", y, y_ref, dn),
+                          compare("ssd", hT, h_ref, dn))
+                line = (f"ssd {tag} B={B} S={S} H={H} P={P} N={N} "
+                        f"chunk={chunk} {dn}: max_abs_err {err:.3g}")
+                if tag == "jax-case":   # also the sequential oracle
+                    y_seq, h_seq = ssd_ref(*args)
+                    e2 = max(compare("ssd", y, y_seq, dn),
+                             compare("ssd", hT, h_seq, dn))
+                    line += f", vs recurrence {e2:.3g}"
+                if tag == "hymba" and dtype == torch.bfloat16:
+                    main_err = max(main_err, err)
+                    ms = time_ms(lambda: ssdk.ssd(*args, chunk=chunk))
+                    plain = time_ms(lambda: ssd_chunked(*args, chunk),
+                                    reps=5)
+                    b_ms, b_by = bound(nbytes(*args, y, hT),
+                                       _ssd_ops(B, S, H, P, N, chunk), dn)
+                    line += (f", kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                             f"bound {b_ms:.4f} ms ({b_by})")
+                    if S == 256:
+                        rec = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                   bound_ms=b_ms, bound_by=b_by)
+                log(line)
+    rec["max_abs_err"] = main_err
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 3
+# ---------------------------------------------------------------------------
+class _Timer:
+    """Tracer that collects host durations of the engine's tasks."""
+
+    def __init__(self):
+        self.spans: dict[str, list[float]] = {}
+        self._t0: dict[str, float] = {}
+
+    def on_start(self, t):
+        self._t0[t.id] = time.perf_counter()
+
+    def on_end(self, t):
+        self.spans.setdefault(t.category, []).append(
+            (time.perf_counter() - self._t0.pop(t.id)) * 1e3)
+
+    def on_tag(self, t, tag):
+        pass
+
+
+def _finite_forward(tfm, counter):
+    """Wrap ``tfm.forward`` to count calls whose real logits are not
+    finite (the padded vocab columns hold -1e30 by design)."""
+    import torch
+    orig = tfm.forward
+
+    def checked(params, cfg, *a, **kw):
+        logits, cache, aux = orig(params, cfg, *a, **kw)
+        counter["calls"] += 1
+        if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
+            counter["nonfinite"] += 1
+        return logits, cache, aux
+
+    return orig, checked
+
+
+def check_small_model(dev):
+    """f32 hybrid model (hymba smoke shapes, window 32, chunk 8): card
+    (kernels) against CPU (plain versions)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_smoke_config("hymba-1.5b"), window=32)
+    cpu = tfm.init_model(cfg, seed=1, device="cpu", dtype=torch.float32)
+    gpu = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(1)
+    tol = 1e-4
+    for S in (40, 12):   # S > window, and S ragged against chunk 8
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)))
+        with torch.inference_mode():
+            lc, cc, _ = tfm.forward(cpu, cfg, {"tokens": toks},
+                                    mode="prefill")
+            lg, cg, _ = tfm.forward(gpu, cfg, {"tokens": toks.to(dev)},
+                                    mode="prefill")
+        lg = lg.cpu()
+        err = float((lg - lc)[..., :cfg.vocab].abs().max())
+        if not torch.allclose(lg[..., :cfg.vocab], lc[..., :cfg.vocab],
+                              atol=tol, rtol=tol):
+            raise AssertionError(f"small model prefill S={S}: logits "
+                                 f"differ by {err} (tol {tol})")
+        for k in cc:
+            if not torch.allclose(cg[k].cpu().float(), cc[k].float(),
+                                  atol=tol, rtol=tol):
+                raise AssertionError(f"small model prefill S={S}: cache "
+                                     f"{k!r} differs")
+        log(f"small model f32 prefill S={S}: card vs CPU logits max abs "
+            f"err {err:.3g} (tol {tol})")
+    outs = []
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (5, 12, 17)]
+    for model in (cpu, gpu):
+        eng = ServeEngine(cfg, model, max_batch=2, max_len=32)
+        for p in prompts:
+            eng.submit(p, max_new=8)
+        outs.append({r.rid: r.out for r in eng.run_until_idle()})
+    if outs[0] != outs[1]:
+        raise AssertionError(f"small model greedy tokens differ: CPU "
+                             f"{outs[0]} vs card {outs[1]}")
+    log(f"small model greedy serving: card tokens == CPU tokens "
+        f"({sum(len(o) for o in outs[0].values())} tokens)")
+
+
+def serve_hymba(dev):
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.ssd import kernel as ssdk
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("hymba-1.5b")
+    t = time.perf_counter()
+    model = tfm.init_model(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"hymba-1.5b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params} params (bf16, seeded random) on the card in "
+        f"{time.perf_counter() - t:.2f} s")
+
+    eng = ServeEngine(cfg, model, max_batch=4, max_len=512)
+    timer = eng.dom.attach(_Timer())
+    rng = np.random.default_rng(0)
+    counter = {"calls": 0, "nonfinite": 0}
+    orig, checked = _finite_forward(tfm, counter)
+    tfm.forward = checked
+    try:
+        for n in PROMPT_LENS:
+            eng.submit(rng.integers(0, cfg.vocab, n), max_new=MAX_NEW)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fak.launches = 0
+        ssdk.launches = 0
+        t = time.perf_counter()
+        done = eng.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {"flash_attention": fak.launches, "ssd": ssdk.launches}
+    finally:
+        tfm.forward = orig
+
+    if len(done) != len(PROMPT_LENS) or \
+            any(len(r.out) != MAX_NEW for r in done):
+        raise AssertionError(f"requests did not all finish with {MAX_NEW} "
+                             f"tokens: {[len(r.out) for r in done]}")
+    if counter["nonfinite"]:
+        raise AssertionError(f"{counter['nonfinite']} of {counter['calls']}"
+                             f" forward calls gave non-finite logits")
+    n_prefill = len(timer.spans["prefill"])
+    want = cfg.n_layers * n_prefill
+    for name, n in launches.items():
+        if n != want:
+            raise AssertionError(f"{name}: {n} launches in the serve run, "
+                                 f"want {cfg.n_layers} x {n_prefill}")
+    pre, dec = timer.spans["prefill"], timer.spans["decode"]
+    toks = sum(len(r.out) for r in done)
+    log(f"served {len(done)} requests x {MAX_NEW} tokens in {wall:.3f} s: "
+        f"{toks / wall:.2f} tokens/s; {counter['calls']} forward calls, "
+        f"all logits finite; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("prefill ms per request (prompt lens "
+        f"{list(PROMPT_LENS)}): {[round(x, 3) for x in pre]}")
+    log(f"decode ms per step: mean {sum(dec) / len(dec):.3f}, "
+        f"min {min(dec):.3f}, max {max(dec):.3f} over {len(dec)} steps")
+    log(f"launches in the serve run: {launches} "
+        f"(= {cfg.n_layers} layers x {n_prefill} prefills)")
+    return launches, model
+
+
+def _kernel_group(name):
+    if "fa_fwd" in name:
+        return "flash_attention"
+    if "ssd_fwd" in name:
+        return "ssd"
+    if any(s in name for s in ("gemm", "nvjet", "cutlass", "sm90_", "cublas")):
+        return "matmul"
+    return "other"
+
+
+def _profile(model):
+    """Device busy share and kernel time by group, for one prefill and for
+    decode steps with every slot active.  Wall times come from an
+    unprofiled run of the same work; device times from torch.profiler's
+    kernel events (one stream, so their sum is the busy time)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg, rng = model.cfg, np.random.default_rng(1)
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e6
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in kern)
+        groups: dict[str, float] = {}
+        for e in kern:
+            g = _kernel_group(e.name)
+            groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us()
+        log(f"profile {label}: wall {wall:.0f} us unprofiled, device busy "
+            f"{busy:.0f} us ({100 * busy / wall:.1f}%), {len(kern)} kernels;"
+            " device us by group: "
+            + ", ".join(f"{g} {u:.0f}" for g, u in
+                        sorted(groups.items(), key=lambda kv: -kv[1])))
+        ev = prof.key_averages()
+        key = ("self_device_time_total"
+               if hasattr(ev[0], "self_device_time_total")
+               else "self_cuda_time_total")
+        log(ev.table(sort_by=key, row_limit=12))
+
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 256)),
+                           device=model.device)
+    with torch.inference_mode():
+        run("prefill S=256", lambda: tfm.forward(model, cfg,
+                                                 {"tokens": toks},
+                                                 mode="prefill"))
+    eng = ServeEngine(cfg, model, max_batch=4, max_len=512)
+    for n in (256, 200, 130, 64):
+        eng.submit(rng.integers(0, cfg.vocab, n), max_new=24)
+    eng.step()                       # admit all four, one decode step
+    run("4 decode steps, 4 active slots",
+        lambda: [eng.step() for _ in range(4)])
+
+
+# ---------------------------------------------------------------------------
+def main():
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError:
+        print(f"chip_smoke: repro_torch not found under {ROOT / 'src'}",
+              file=sys.stderr)
+        return 1
+
+    dev = torch.device("cuda", 0)
+    setup()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fa = check_flash(dev, gen)
+    sd = check_ssd(dev, gen)
+    check_small_model(dev)
+    launches, model = serve_hymba(dev)
+    _profile(model)
+
+    kernels = [
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:25",
+             launches=launches["flash_attention"], **fa),
+        dict(name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
+             replaces="src/repro/kernels/ssd/kernel.py:23",
+             launches=launches["ssd"], **sd),
+    ]
+    keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
+    print(json.dumps({"kernels": [{k: kr[k] for k in keys}
+                                  for kr in kernels]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

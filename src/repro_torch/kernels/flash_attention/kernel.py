@@ -1,0 +1,79 @@
+"""Launcher of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+
+The port's counterpart of ``repro.kernels.flash_attention.kernel``: it
+takes tensors on the card only, checks what the kernel accepts, allocates
+the output and launches on the current stream.  ``launches`` counts the
+launches, so a run can show that its prefill went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .. import _build
+
+launches = 0
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_ARGTYPES = [_P] * 4 + [_I] * 7 + [_L] * 12 + [_I, _I, _F, _F, _P]
+
+
+def _fn():
+    fn = _build.load("flash_attention").fa_forward
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    return fn
+
+
+def _check(q, k, v):
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
+                         f"{q.device}")
+    if not (k.device == v.device == q.device):
+        raise ValueError("q, k, v must be on one device")
+    if q.dtype not in DTYPES or not (k.dtype == v.dtype == q.dtype):
+        raise TypeError(f"q, k, v must share a dtype in "
+                        f"{list(DTYPES)}: {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"want q [B,Sq,H,hd], k/v [B,Sk,KV,hd]: "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    Bk, Sk, KV, hdk = k.shape
+    if Bk != B or hdk != hd or KV == 0 or H % KV:
+        raise ValueError(f"batch/head mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if Sq < 1 or Sk < 1:
+        raise ValueError("empty sequence")
+    if not (q.stride(-1) == k.stride(-1) == v.stride(-1) == 1):
+        raise ValueError("the head dim must be contiguous")
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=None):
+    """q: [B,Sq,H,hd]; k, v: [B,Sk,KV,hd] on the card -> [B,Sq,H,hd].
+
+    Self-attention positions (iota).  ``window`` > 0 is a sliding window,
+    ``cap`` > 0 a tanh logit softcap; ``scale`` defaults to 1/sqrt(hd).
+    """
+    global launches
+    _check(q, k, v)
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               DTYPES[q.dtype], B, Sq, Sk, H, KV, hd,
+               *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *out.stride()[:3], int(bool(causal)), int(window),
+               float(scale), float(cap), stream)
+    _build.check(rc, "flash_attention")
+    launches += 1
+    return out

@@ -1,0 +1,133 @@
+"""Parameter specs, their initialisation, and the basic layers (norms, MLPs,
+embeddings).  Counterpart of ``repro.models.layers``.
+
+A :class:`PSpec` carries a parameter's shape and init kind; the JAX
+package's sharding axes have no single-card meaning and are dropped.
+:func:`init_params` materialises a spec tree from a ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class PSpec:
+    shape: tuple
+    init: str = "normal"  # normal | zeros | ones
+    scale: float | None = None
+
+
+def init_params(tree, generator: torch.Generator, dtype=torch.bfloat16):
+    """Nested dict of PSpec -> nested dict of tensors on the generator's
+    device.
+
+    ``normal`` draws f32 N(0, 1) times ``scale`` (default 1/sqrt(shape[0]))
+    and casts to ``dtype``, as the JAX package does.  Leaves are drawn in
+    sorted key order.
+    """
+    device = generator.device
+
+    def one(ps: PSpec):
+        if ps.init == "zeros":
+            return torch.zeros(ps.shape, dtype=dtype, device=device)
+        if ps.init == "ones":
+            return torch.ones(ps.shape, dtype=dtype, device=device)
+        scale = ps.scale if ps.scale is not None else \
+            1.0 / math.sqrt(max(ps.shape[0], 1))
+        w = torch.randn(ps.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (w * scale).to(dtype)
+
+    def walk(t):
+        if isinstance(t, PSpec):
+            return one(t)
+        return {k: walk(t[k]) for k in sorted(t)}
+
+    return walk(tree)
+
+
+def promote(*ts):
+    """Cast tensors to their common type, as JAX promotes mixed operands."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in ts]
+
+
+def matmul(a, b):
+    a, b = promote(a, b)
+    return a @ b
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+def rmsnorm(x, w, eps=1e-6):
+    xf = x.float()
+    n = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (n * (1.0 + w.float())).to(x.dtype)
+
+
+def layernorm(x, w, b=None, eps=1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    n = (xf - mu) * torch.rsqrt(var + eps) * w.float()
+    if b is not None:
+        n = n + b.float()
+    return n.to(x.dtype)
+
+
+def norm(cfg, x, w):
+    return rmsnorm(x, w) if cfg.norm == "rms" else layernorm(x, w)
+
+
+def norm_spec(cfg):
+    return PSpec((cfg.d_model,), "zeros" if cfg.norm == "rms" else "ones")
+
+
+def mlp_specs(d_model: int, d_ff: int, act: str):
+    if act == "swiglu":
+        return {"wi": PSpec((d_model, d_ff)), "wg": PSpec((d_model, d_ff)),
+                "wo": PSpec((d_ff, d_model))}
+    return {"wi": PSpec((d_model, d_ff)), "wo": PSpec((d_ff, d_model))}
+
+
+def mlp(params, x, act: str):
+    if act == "swiglu":
+        h = F.silu(matmul(x, params["wg"])) * matmul(x, params["wi"])
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(matmul(x, params["wi"]), approximate="tanh")
+    return matmul(h, params["wo"])
+
+
+def softcap(x, cap: float):
+    return torch.tanh(x / cap) * cap if cap else x
+
+
+def embed_specs(cfg):
+    s = {"tok": PSpec((cfg.vocab_padded, cfg.d_model), scale=1.0)}
+    if not cfg.tie_embeddings:
+        s["unembed"] = PSpec((cfg.d_model, cfg.vocab_padded))
+    return s
+
+
+def embed(params, cfg, tokens):
+    e = params["tok"][tokens]
+    if cfg.norm == "rms" and cfg.final_softcap:   # gemma-style scaling
+        e = e * torch.tensor(math.sqrt(cfg.d_model), dtype=e.dtype)
+    return e
+
+
+def unembed(params, cfg, x):
+    w = params["tok"].T if cfg.tie_embeddings else params["unembed"]
+    logits = x @ w.to(x.dtype)
+    logits = softcap(logits.float(), cfg.final_softcap)
+    if cfg.vocab_padded != cfg.vocab:  # mask padding columns
+        logits[..., cfg.vocab:] = -1e30
+    return logits

@@ -1,0 +1,109 @@
+"""Port's SSD chunk scan (plain versions, CPU) against the JAX package.
+
+The same seeded numpy inputs go through the JAX kernel in interpret mode,
+the JAX chunked form and the sequential oracle, and through the port's CPU
+path.  Tolerances are the JAX kernel tests': 1e-4 in f32, 5e-2 in bf16.
+The CUDA kernel itself is held against ``ssd_chunked`` on the card by
+``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd import kernel as jax_ssd
+from repro.kernels.ssd.ref import ssd_chunked as jax_chunked
+from repro.kernels.ssd.ref import ssd_ref as jax_seq
+from repro_torch.kernels.ssd import kernel as ssd_kernel
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_ref
+
+CASES = [  # B, S, H, P, N, chunk  (tests/kernels/test_ssd.py)
+    (1, 64, 2, 16, 8, 16),
+    (2, 128, 3, 32, 16, 32),
+    (1, 256, 2, 64, 64, 64),
+]
+DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 5e-2)}
+
+
+def _mk(B, S, H, P, N, seed=0):
+    rng = np.random.default_rng(seed)
+    xs = rng.standard_normal((B, S, H, P), dtype=np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H), dtype=np.float32)
+                         - 1.0)).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(H, dtype=np.float32) * 0.3)) \
+        .astype(np.float32)
+    B_ = rng.standard_normal((B, S, N), dtype=np.float32)
+    C_ = rng.standard_normal((B, S, N), dtype=np.float32)
+    return xs, dt, A, B_, C_
+
+
+def _both(arrs, dname):
+    """xs, B, C in the working dtype; dt and A stay f32, as in the model."""
+    jd, td, _ = DTYPES[dname]
+    xs, dt, A, B_, C_ = arrs
+    j = [jnp.asarray(xs).astype(jd), jnp.asarray(dt), jnp.asarray(A),
+         jnp.asarray(B_).astype(jd), jnp.asarray(C_).astype(jd)]
+    t = [torch.from_numpy(xs).to(td), torch.from_numpy(dt),
+         torch.from_numpy(A), torch.from_numpy(B_).to(td),
+         torch.from_numpy(C_).to(td)]
+    return j, t
+
+
+def _close(out, ref, tol):
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", CASES)
+@pytest.mark.parametrize("dname", list(DTYPES))
+def test_plain_matches_jax_kernel_and_oracles(B, S, H, P, N, chunk, dname):
+    j, t = _both(_mk(B, S, H, P, N), dname)
+    tol = DTYPES[dname][2]
+    y, hT = ssd_ops.ssd(*t, chunk)
+    assert y.dtype == t[0].dtype and hT.dtype == torch.float32
+    for ref in (jax_ssd.ssd(*j, chunk=chunk, interpret=True),
+                jax_chunked(*j, chunk), jax_seq(*j)):
+        _close(y, ref[0], tol)
+        _close(hT, ref[1], tol)
+
+
+@pytest.mark.parametrize("dname", list(DTYPES))
+def test_sequential_oracle_matches(dname):
+    j, t = _both(_mk(2, 48, 3, 16, 8, seed=1), dname)
+    y, hT = ssd_ref(*t)
+    yj, hj = jax_seq(*j)
+    tol = DTYPES[dname][2]
+    _close(y, yj, tol)
+    _close(hT, hj, tol)
+
+
+@pytest.mark.parametrize("S,chunk", [(100, 32), (20, 32), (129, 128)])
+@pytest.mark.parametrize("dname", list(DTYPES))
+def test_ragged_length_against_recurrence(S, chunk, dname):
+    """S % chunk != 0 and S < chunk, which the JAX kernel refuses and the
+    XLA path sends to the sequential oracle."""
+    j, t = _both(_mk(1, S, 2, 16, 8, seed=S), dname)
+    tol = DTYPES[dname][2]
+    y, hT = ssd_ops.ssd(*t, chunk)
+    yj, hj = jax_seq(*j)
+    assert y.shape == (1, S, 2, 16)
+    _close(y, yj, tol)
+    _close(hT, hj, tol)
+
+
+def test_chunk_size_independence():
+    _, t = _both(_mk(1, 128, 2, 16, 8, seed=3), "float32")
+    outs = [ssd_chunked(*t, c)[0].numpy() for c in (16, 32, 48, 128)]
+    for o in outs[1:]:
+        np.testing.assert_allclose(o, outs[0], atol=1e-4, rtol=1e-4)
+
+
+def test_cpu_path_never_launches_and_kernel_refuses_cpu():
+    _, t = _both(_mk(1, 16, 2, 16, 8), "float32")
+    before = ssd_kernel.launches
+    ssd_ops.ssd(*t, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_kernel.ssd(*t, chunk=8)
+    assert ssd_kernel.launches == before
