@@ -5,24 +5,32 @@
 
 Phases (each raises on failure, and the run then exits non-zero):
   1. setup: card name and power limit, build every CUDA kernel from the
-     sources in the checkout (one nvcc per source, all at once), TF32 off;
+     sources in the checkout (one nvcc per source, all at once, with each
+     kernel's registers and spills from ptxas), TF32 off;
   2. kernels: each kernel against its plain PyTorch version on the card,
-     at hymba-1.5b's prefill shapes (ragged S and S > window included) and
-     at the JAX package's kernel-test cases, in bf16 and f32, with the
-     tolerances of those tests; kernel, plain and library times;
+     in bf16 (the tensor-core kernels) and f32 (the CUDA-core kernels), at
+     hymba-1.5b's prefill shapes (ragged S, S > window, and S=2048 for
+     SSD), at mamba2-130m's SSD widths (where the f32 kernel is also held
+     against an f64 recurrence), at the JAX package's kernel-test cases
+     and at the edges of what the kernels accept, with the tolerances of
+     those tests, and one SSD call's output fed straight into the next;
+     kernel, plain and library times;
   3. serve: a small f32 hybrid model on the card against the same model on
-     the CPU (plain versions), then hymba-1.5b at full width and depth with
-     seeded random bf16 weights served by ``ServeEngine`` (5 requests, 32
-     new tokens each), checking that every prefill launched both kernels
-     once per layer;
-  4. profile: device busy share and kernel time by group for one prefill
-     and for decode steps with every slot active (torch.profiler).
+     the CPU (plain versions), which is the f32 kernels' path, then
+     hymba-1.5b at full width and depth with seeded random bf16 weights
+     served by ``ServeEngine`` (5 requests, 32 new tokens each), the bf16
+     kernels' path; each path must launch both kernels once per layer of
+     every prefill;
+  4. profile: device busy share (the union of kernel intervals: the SSD
+     kernels overlap) and kernel time by group for one prefill and for
+     decode steps with every slot active (torch.profiler).
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -50,6 +58,20 @@ SSD_CASES = [  # B, S, H, P, N, chunk
     (2, 128, 3, 32, 16, 32),
     (1, 256, 2, 64, 64, 64),
 ]
+# edges of what the kernels accept: hd=128 with one and with two key
+# groups, a ragged S, P and N that are not multiples of 16 or of 8 (rows
+# that are not 16-byte aligned), and the longest chunk with a ragged tail
+FA_EDGE = [
+    (1, 200, 4, 2, 128, False, 0, 0.0),
+    (2, 1100, 8, 2, 128, True, 300, 30.0),
+]
+SSD_EDGE = [
+    (1, 250, 3, 40, 24, 100),
+    (1, 70, 2, 5, 7, 32),
+    (2, 1030, 2, 64, 128, 1024),
+]
+# (B, S, H, P, N, chunk) at mamba2-130m's widths
+MAMBA2_SSD = (1, 512, 24, 64, 128, 256)
 PROMPT_LENS = (256, 200, 384, 130, 64)
 MAX_NEW = 32
 
@@ -59,11 +81,35 @@ def log(*a):
 
 
 def time_ms(fn, reps=20, warmup=3):
-    """Mean device time of one call, from CUDA events around ``reps``
-    back-to-back calls after ``warmup`` calls."""
+    """Mean device time of one call: ``reps`` calls captured in one CUDA
+    graph after ``warmup`` eager calls, the graph replayed between two CUDA
+    events.  The graph takes the host's launch work out of the time; for a
+    kernel of a few microseconds that work is longer than the kernel."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def eager_ms(fn, reps=20):
+    """Mean time of one call issued eagerly, back to back, between two
+    CUDA events: the device time, or the host's launch work where that is
+    longer, as on the serving path."""
+    import torch
+    fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -114,10 +160,18 @@ def setup():
     logs = _build.build_all()
     log(f"built kernels {sorted(logs) or 'none (cached)'} in "
         f"{time.perf_counter() - t:.2f} s")
+    entry = re.compile(r"\d(fa_tc_fwd|fa_fwd|ssd_tc_(?:state|pass|scan)"
+                       r"|ssd_fwd)(\w*)")
     for name, text in logs.items():
+        kernel = "?"
         for line in text.splitlines():
+            if "Compiling entry function" in line:
+                m = entry.search(line)
+                hd = re.search(r"Li(\d+)E", m.group(2)) if m else None
+                kernel = (m.group(1) if m else "?") + \
+                    (f"<{hd.group(1)}>" if hd else "")
             if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+                log(f"  {name} {kernel}: {line.strip()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off for matmul and cuDNN (f32 plain versions run in full f32)")
@@ -136,6 +190,9 @@ def _attn_pairs(S, causal, window):
 
 
 def check_flash(dev, gen):
+    """Both kernels against the plain version at every case; times at
+    hymba's shapes.  Returns the JSON record of each dtype's kernel, from
+    the S=256, window 1024 case."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fak
@@ -151,8 +208,9 @@ def check_flash(dev, gen):
     hymba = [(1, S, 25, 5, 64, True, w, 0.0)
              for S in (256, 200) for w in (0, 1024)]
     hymba.append((1, 1536, 25, 5, 64, True, 1024, 0.0))
-    main_err, rec = 0.0, None
-    for tag, cases in (("hymba", hymba), ("jax-case", FA_CASES)):
+    err, rec = {}, {}
+    for tag, cases in (("hymba", hymba), ("jax-case", FA_CASES),
+                       ("edge", FA_EDGE)):
         for case in cases:
             B, S, H, KV, hd, causal, window, cap = case
             for dtype in (torch.bfloat16, torch.float32):
@@ -162,12 +220,13 @@ def check_flash(dev, gen):
                 out = fak.flash_attention(q, k, v, **kw)
                 torch.cuda.synchronize()
                 ref = flash_attention_ref(q, k, v, **kw)
-                err = compare("flash_attention", out, ref, dn)
-                line = (f"flash_attention {tag} B={B} S={S} H={H} KV={KV} "
-                        f"hd={hd} causal={causal} window={window} cap={cap} "
-                        f"{dn}: max_abs_err {err:.3g}")
-                if tag == "hymba" and dtype == torch.bfloat16:
-                    main_err = max(main_err, err)
+                e = compare("flash_attention", out, ref, dn)
+                line = (f"flash_attention {fak.entry(dtype)[1]} {tag} B={B} "
+                        f"S={S} H={H} KV={KV} hd={hd} causal={causal} "
+                        f"window={window} cap={cap} {dn}: max_abs_err "
+                        f"{e:.3g}")
+                if tag == "hymba":
+                    err[dn] = max(err.get(dn, 0.0), e)
                     ms = time_ms(lambda: fak.flash_attention(q, k, v, **kw))
                     plain = time_ms(lambda: flash_attention_ref(q, k, v, **kw),
                                     reps=5)
@@ -185,16 +244,20 @@ def check_flash(dev, gen):
                         sdpa = lambda: F.scaled_dot_product_attention(  # noqa
                             qh, kh, vh, is_causal=True)
                     lib = time_ms(sdpa)
+                    eager = eager_ms(lambda: fak.flash_attention(q, k, v,
+                                                                 **kw))
                     ops = 4 * B * H * hd * _attn_pairs(S, causal, window)
                     b_ms, b_by = bound(nbytes(q, k, v, out), ops, dn)
-                    line += (f", kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                    line += (f", kernel {ms:.4f} ms (eager {eager:.4f}), "
+                             f"plain {plain:.4f} ms, "
                              f"sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
-                             f"({b_by})")
+                             f"({b_by}), share of bound {b_ms / ms:.3f}")
                     if S == 256 and window == 1024:
-                        rec = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                   bound_ms=b_ms, bound_by=b_by)
+                        rec[dn] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                       bound_ms=b_ms, bound_by=b_by)
                 log(line)
-    rec["max_abs_err"] = main_err
+    for dn in rec:
+        rec[dn]["max_abs_err"] = err[dn]
     return rec
 
 
@@ -211,7 +274,55 @@ def _ssd_ops(B, S, H, P, N, chunk):
     return B * H * ops
 
 
+def _ssd_recurrence_f64(xs, dt, A, B_, C_):
+    """The sequential recurrence in f64: an oracle free of the chunked
+    form's f32 rounding."""
+    import torch
+    xs, dt, A, B_, C_ = (t.double() for t in (xs, dt, A, B_, C_))
+    B, S, H, P = xs.shape
+    h = torch.zeros((B, H, P, B_.shape[-1]), dtype=torch.float64,
+                    device=xs.device)
+    ys = []
+    for t in range(S):
+        h = h * torch.exp(dt[:, t] * A)[:, :, None, None] + torch.einsum(
+            "bh,bn,bhp->bhpn", dt[:, t], B_[:, t], xs[:, t])
+        ys.append(torch.einsum("bn,bhpn->bhp", C_[:, t], h))
+    return torch.stack(ys, dim=1), h
+
+
+def _ssd_witness(args, y, hT, chunk):
+    """The f32 kernel, the chunked plain version on the card and the same
+    on the CPU, each against the f64 recurrence, and the kernel against the
+    CPU's chunked version: shows which side a miss of the f32 tolerance
+    comes from.  Each pair gives the max abs error of y and the state, and
+    max |a - b| / (tol + tol |b|), which is at most 1 within tolerance."""
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    tol = TOL["ssd"]["float32"]
+    truth = _ssd_recurrence_f64(*args)
+    card = ssd_chunked(*args, chunk)
+    cpu = ssd_chunked(*(t.cpu() for t in args), chunk)
+
+    def err(a, b):
+        e = r = 0.0
+        for u, v in zip(a, b):
+            u, v = u.double().cpu(), v.double().cpu()
+            d = (u - v).abs()
+            e = max(e, float(d.max()))
+            r = max(r, float((d / (tol + tol * v.abs())).max()))
+        return f"{e:.3g} (ratio {r:.3g})"
+    kern = (y, hT)
+    return (f"; witness, max abs err of y and state: kernel vs CPU chunked "
+            f"{err(kern, cpu)}, vs f64 recurrence {err(kern, truth)}; card "
+            f"chunked vs f64 recurrence {err(card, truth)}; CPU chunked vs "
+            f"f64 recurrence {err(cpu, truth)}")
+
+
 def check_ssd(dev, gen):
+    """Both kernels against the chunked plain version (and, at the JAX
+    cases, the recurrence) at every case; bf16 times at hymba's and
+    mamba2-130m's shapes; one call's output fed straight into the next.
+    Returns the JSON record of each dtype's kernel, from hymba's S=256
+    case."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ssd import kernel as ssdk
@@ -227,9 +338,10 @@ def check_ssd(dev, gen):
         return xs, dt, A, B_, C_
 
     # hymba-1.5b prefill: 50 heads, P=64, N=16, chunk 128
-    hymba = [(1, S, 50, 64, 16, 128) for S in (256, 200)]
-    main_err, rec = 0.0, None
-    for tag, cases in (("hymba", hymba), ("jax-case", SSD_CASES)):
+    hymba = [(1, S, 50, 64, 16, 128) for S in (256, 200, 2048)]
+    err, rec = {}, {}
+    for tag, cases in (("hymba", hymba), ("mamba2-130m", [MAMBA2_SSD]),
+                       ("jax-case", SSD_CASES), ("edge", SSD_EDGE)):
         for case in cases:
             B, S, H, P, N, chunk = case
             for dtype in (torch.bfloat16, torch.float32):
@@ -238,29 +350,55 @@ def check_ssd(dev, gen):
                 y, hT = ssdk.ssd(*args, chunk=chunk)
                 torch.cuda.synchronize()
                 y_ref, h_ref = ssd_chunked(*args, chunk)
-                err = max(compare("ssd", y, y_ref, dn),
-                          compare("ssd", hT, h_ref, dn))
-                line = (f"ssd {tag} B={B} S={S} H={H} P={P} N={N} "
-                        f"chunk={chunk} {dn}: max_abs_err {err:.3g}")
+                e = max(compare("ssd", y, y_ref, dn),
+                        compare("ssd", hT, h_ref, dn))
+                line = (f"ssd {ssdk.entry(dtype)[1]} {tag} B={B} S={S} H={H} "
+                        f"P={P} N={N} chunk={chunk} {dn}: max_abs_err "
+                        f"{e:.3g}")
                 if tag == "jax-case":   # also the sequential oracle
                     y_seq, h_seq = ssd_ref(*args)
                     e2 = max(compare("ssd", y, y_seq, dn),
                              compare("ssd", hT, h_seq, dn))
                     line += f", vs recurrence {e2:.3g}"
-                if tag == "hymba" and dtype == torch.bfloat16:
-                    main_err = max(main_err, err)
+                elif tag != "edge":
+                    err[dn] = max(err.get(dn, 0.0), e)
+                if tag == "mamba2-130m" and dtype == torch.float32:
+                    line += _ssd_witness(args, y, hT, chunk)
+                if tag in ("hymba", "mamba2-130m") and (dtype == torch.bfloat16
+                                          or (S == 256 and tag == "hymba")):
                     ms = time_ms(lambda: ssdk.ssd(*args, chunk=chunk))
                     plain = time_ms(lambda: ssd_chunked(*args, chunk),
                                     reps=5)
+                    eager = eager_ms(lambda: ssdk.ssd(*args, chunk=chunk))
                     b_ms, b_by = bound(nbytes(*args, y, hT),
                                        _ssd_ops(B, S, H, P, N, chunk), dn)
-                    line += (f", kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                             f"bound {b_ms:.4f} ms ({b_by})")
-                    if S == 256:
-                        rec = dict(ms=ms, plain_ms=plain, library_ms=None,
-                                   bound_ms=b_ms, bound_by=b_by)
+                    line += (f", kernel {ms:.4f} ms (eager {eager:.4f}), "
+                             f"plain {plain:.4f} ms, "
+                             f"bound {b_ms:.4f} ms ({b_by}), share of bound "
+                             f"{b_ms / ms:.3f}")
+                    if tag == "hymba" and S == 256:
+                        rec[dn] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                       bound_ms=b_ms, bound_by=b_by)
                 log(line)
-    rec["max_abs_err"] = main_err
+
+    # one call's output straight into the next, with nothing between: the
+    # second call's kernels start early and must still see the first's y
+    B, S, H, P, N, chunk = hymba[-1]
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        xs, dt, A, B_, C_ = mk(B, S, H, P, N, dtype)
+        torch.cuda.synchronize()
+        y1, _ = ssdk.ssd(xs, dt, A, B_, C_, chunk=chunk)
+        y2, h2 = ssdk.ssd(y1, dt, A, B_, C_, chunk=chunk)
+        torch.cuda.synchronize()
+        y1_ref, _ = ssd_chunked(xs, dt, A, B_, C_, chunk)
+        y2_ref, h2_ref = ssd_chunked(y1, dt, A, B_, C_, chunk)
+        e = max(compare("ssd", y1, y1_ref, dn), compare("ssd", y2, y2_ref, dn),
+                compare("ssd", h2, h2_ref, dn))
+        log(f"ssd {ssdk.entry(dtype)[1]} chained ssd(ssd(x).y) B={B} S={S} "
+            f"H={H} P={P} N={N} chunk={chunk} {dn}: max_abs_err {e:.3g}")
+    for dn in rec:
+        rec[dn]["max_abs_err"] = err[dn]
     return rec
 
 
@@ -303,13 +441,16 @@ def _finite_forward(tfm, counter):
 
 def check_small_model(dev):
     """f32 hybrid model (hymba smoke shapes, window 32, chunk 8): card
-    (kernels) against CPU (plain versions)."""
+    (kernels) against CPU (plain versions).  This is the f32 kernels'
+    path: returns their launches in it, one per layer of every prefill."""
     import copy
     import dataclasses
 
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.ssd import kernel as ssdk
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.engine import ServeEngine
 
@@ -318,6 +459,8 @@ def check_small_model(dev):
     gpu = copy.deepcopy(cpu).to(dev)
     rng = np.random.default_rng(1)
     tol = 1e-4
+    fak.launches = 0
+    ssdk.launches = 0
     for S in (40, 12):   # S > window, and S ragged against chunk 8
         toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)))
         with torch.inference_mode():
@@ -342,14 +485,25 @@ def check_small_model(dev):
     prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (5, 12, 17)]
     for model in (cpu, gpu):
         eng = ServeEngine(cfg, model, max_batch=2, max_len=32)
+        timer = eng.dom.attach(_Timer())
         for p in prompts:
             eng.submit(p, max_new=8)
         outs.append({r.rid: r.out for r in eng.run_until_idle()})
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fak.launches, "ssd": ssdk.launches}
     if outs[0] != outs[1]:
         raise AssertionError(f"small model greedy tokens differ: CPU "
                              f"{outs[0]} vs card {outs[1]}")
     log(f"small model greedy serving: card tokens == CPU tokens "
         f"({sum(len(o) for o in outs[0].values())} tokens)")
+    n_prefill = 2 + len(timer.spans["prefill"])   # 2 forward calls above
+    for name, n in launches.items():
+        if n != cfg.n_layers * n_prefill:
+            raise AssertionError(f"{name}: {n} f32 launches on the small "
+                                 f"model, want {cfg.n_layers} x {n_prefill}")
+    log(f"launches on the small f32 model: {launches} "
+        f"(= {cfg.n_layers} layers x {n_prefill} prefills)")
+    return launches
 
 
 def serve_hymba(dev):
@@ -415,14 +569,19 @@ def serve_hymba(dev):
     log(f"decode ms per step: mean {sum(dec) / len(dec):.3f}, "
         f"min {min(dec):.3f}, max {max(dec):.3f} over {len(dec)} steps")
     log(f"launches in the serve run: {launches} "
-        f"(= {cfg.n_layers} layers x {n_prefill} prefills)")
+        f"(= {cfg.n_layers} layers x {n_prefill} prefills), through "
+        f"{fak.entry(torch.bfloat16)[1]} and {ssdk.entry(torch.bfloat16)[1]}")
     return launches, model
 
 
+OWN_KERNELS = ("fa_tc_fwd", "fa_fwd", "ssd_tc_state", "ssd_tc_pass",
+               "ssd_tc_scan", "ssd_fwd")
+
+
 def _kernel_group(name):
-    if "fa_fwd" in name:
+    if "fa_fwd" in name or "fa_tc_" in name:
         return "flash_attention"
-    if "ssd_fwd" in name:
+    if "ssd_fwd" in name or "ssd_tc_" in name:
         return "ssd"
     if any(s in name for s in ("gemm", "nvjet", "cutlass", "sm90_", "cublas")):
         return "matmul"
@@ -454,16 +613,30 @@ def _profile(model):
             fn()
             torch.cuda.synchronize()
         kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.time_range.elapsed_us() for e in kern)
+        # busy time is the union of the kernels' intervals: the SSD
+        # kernels overlap (programmatic dependent launch)
+        busy, end = 0.0, float("-inf")
+        for e in sorted(kern, key=lambda e: e.time_range.start):
+            lo, hi = max(e.time_range.start, end), e.time_range.end
+            busy += max(0.0, hi - lo)
+            end = max(end, hi)
         groups: dict[str, float] = {}
         for e in kern:
             g = _kernel_group(e.name)
             groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us()
+        own: dict[str, list[float]] = {}   # the port's kernels, by name
+        for e in kern:
+            name = next((n for n in OWN_KERNELS if n in e.name), None)
+            if name:
+                own.setdefault(name, []).append(e.time_range.elapsed_us())
         log(f"profile {label}: wall {wall:.0f} us unprofiled, device busy "
             f"{busy:.0f} us ({100 * busy / wall:.1f}%), {len(kern)} kernels;"
             " device us by group: "
             + ", ".join(f"{g} {u:.0f}" for g, u in
-                        sorted(groups.items(), key=lambda kv: -kv[1])))
+                        sorted(groups.items(), key=lambda kv: -kv[1]))
+            + "; own kernels, us per launch: "
+            + ", ".join(f"{n} {sum(u) / len(u):.2f} x {len(u)}"
+                        for n, u in own.items()))
         ev = prof.key_averages()
         key = ("self_device_time_total"
                if hasattr(ev[0], "self_device_time_total")
@@ -506,18 +679,27 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     fa = check_flash(dev, gen)
     sd = check_ssd(dev, gen)
-    check_small_model(dev)
+    f32_launches = check_small_model(dev)
     launches, model = serve_hymba(dev)
     _profile(model)
 
+    fa_src = "src/repro/kernels/flash_attention/kernel.py:25"
+    ssd_src = "src/repro/kernels/ssd/kernel.py:23"
     kernels = [
-        dict(name="flash_attention", route="cuda",
+        dict(name="flash_attention_tc", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_tc.cu",
+             replaces=fa_src, launches=launches["flash_attention"],
+             **fa["bfloat16"]),
+        dict(name="ssd_tc", route="cuda",
+             source="src/repro_torch/csrc/ssd_tc.cu", replaces=ssd_src,
+             launches=launches["ssd"], **sd["bfloat16"]),
+        dict(name="flash_attention_f32", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention/kernel.py:25",
-             launches=launches["flash_attention"], **fa),
-        dict(name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
-             replaces="src/repro/kernels/ssd/kernel.py:23",
-             launches=launches["ssd"], **sd),
+             replaces=fa_src, launches=f32_launches["flash_attention"],
+             **fa["float32"]),
+        dict(name="ssd_f32", route="cuda",
+             source="src/repro_torch/csrc/ssd.cu", replaces=ssd_src,
+             launches=f32_launches["ssd"], **sd["float32"]),
     ]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]

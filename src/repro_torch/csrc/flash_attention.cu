@@ -1,31 +1,32 @@
-// Flash-attention forward for Hopper (sm_90a), self-attention prefill.
+// Flash-attention forward for Hopper (sm_90a), self-attention prefill, f32.
 //
 // Replaces the Pallas TPU kernel `_fa_kernel` (src/repro/kernels/
-// flash_attention/kernel.py:25, launched by `flash_attention` at :70).
-// Same function: scores in f32 scaled by `scale`, optional tanh softcap,
-// causal mask kp <= qp and sliding-window mask qp - kp < window (masked
-// scores are -1e30, as in the reference), GQA query head h reads KV head
-// h / (H / KV), online softmax with running max, denominator and f32
-// accumulator, output acc / max(l, 1e-30) in q's dtype.  Positions are the
-// self-attention iota.  `window` is a runtime int and is honoured in every
-// layer (the reference's ops.py drops a traced window to 0).  Any Sq, Sk:
-// the ragged q and kv edges are masked here, no divisibility asserts.
+// flash_attention/kernel.py:25, launched by `flash_attention` at :70) for
+// f32 inputs, which need the f32 tolerance of 2e-5 that no tensor-core
+// format holds; bf16 goes to flash_attention_tc.cu.  Same function: scores
+// in f32 scaled by `scale`, optional tanh softcap, causal mask kp <= qp and
+// sliding-window mask qp - kp < window (masked scores are -1e30, as in the
+// reference), GQA query head h reads KV head h / (H / KV), online softmax
+// with running max, denominator and f32 accumulator, output
+// acc / max(l, 1e-30).  Positions are the self-attention iota.  `window`
+// is a runtime int and is honoured in every layer (the reference's ops.py
+// drops a traced window to 0).  Any Sq, Sk: the ragged q and kv edges are
+// masked here, no divisibility asserts.
 //
 // What bounds it on the H100: causal attention does 2*S*S*hd FLOPs per
 // query head against (2*H + 2*KV)*S*hd*2 bytes; at hymba's 25 query and 5
 // KV heads that is about 0.42*S FLOP per byte, so prompts below S ~ 700
 // are bound by bytes and longer ones by the tensor cores' 989 TFLOP/s.
-// This first version does the arithmetic on the CUDA cores in f32 FMA
-// (67 TFLOP/s peak) at low occupancy, so it sits far above either bound;
-// wgmma tiles are the next step.  What the design does about
-// it: K and V tiles are staged once in shared memory (widened to f32) and
-// reused by all query rows of the block; each query row is split across
+// In f32 the peak is the CUDA cores' 67 TFLOP/s, and this kernel runs at
+// low occupancy, so it sits far above either bound.  What the design does
+// about it: K and V tiles are staged once in shared memory and reused by
+// all query rows of the block; each query row is split across
 // hd/16 lanes that interleave their 16 dims so shared-memory reads are
 // conflict-free; key tiles fully outside the causal or window range are
 // skipped, which halves causal work.
 #include <math.h>
 
-#include "common.cuh"
+#include <cuda_runtime.h>
 
 namespace {
 
@@ -34,10 +35,10 @@ constexpr int kBK = 32;        // keys per shared-memory tile
 constexpr float kNeg = -1e30f;
 
 struct FaArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
   int B, Sq, Sk, H, KV;
   long long qsb, qss, qsh;  // strides in elements; head dim is contiguous
   long long ksb, kss, ksh;
@@ -47,7 +48,7 @@ struct FaArgs {
   float scale, cap;
 };
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads) fa_fwd(FaArgs a) {
   constexpr int TPR = HD / 16;         // lanes per query row
   constexpr int DPT = HD / TPR;        // dims per lane (16)
@@ -63,15 +64,15 @@ __global__ void __launch_bounds__(kThreads) fa_fwd(FaArgs a) {
   const int qp = q0 + r;
   const bool valid_q = qp < a.Sq;
 
-  const T* Q = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
-  const T* K = static_cast<const T*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const T* V = static_cast<const T*>(a.v) + b * a.vsb + kvh * a.vsh;
+  const float* Q = a.q + b * a.qsb + h * a.qsh;
+  const float* K = a.k + b * a.ksb + kvh * a.ksh;
+  const float* V = a.v + b * a.vsb + kvh * a.vsh;
 
   // lane g of a row owns dims g, g + TPR, g + 2*TPR, ...
   float qr[DPT], acc[DPT];
 #pragma unroll
   for (int i = 0; i < DPT; ++i) {
-    qr[i] = valid_q ? repro::to_f(Q[qp * a.qss + g + TPR * i]) : 0.f;
+    qr[i] = valid_q ? Q[qp * a.qss + g + TPR * i] : 0.f;
     acc[i] = 0.f;
   }
   float m = kNeg, l = 0.f;
@@ -87,8 +88,8 @@ __global__ void __launch_bounds__(kThreads) fa_fwd(FaArgs a) {
     for (int e = tid; e < kBK * HD; e += kThreads) {
       const int j = e / HD, d = e % HD, key = k0 + j;
       const bool in = key < a.Sk;
-      Ks[j][d] = in ? repro::to_f(K[key * a.kss + d]) : 0.f;
-      Vs[j][d] = in ? repro::to_f(V[key * a.vss + d]) : 0.f;
+      Ks[j][d] = in ? K[key * a.kss + d] : 0.f;
+      Vs[j][d] = in ? V[key * a.vss + d] : 0.f;
     }
     __syncthreads();
 
@@ -128,26 +129,25 @@ __global__ void __launch_bounds__(kThreads) fa_fwd(FaArgs a) {
   }
 
   if (valid_q) {
-    T* O = static_cast<T*>(a.o) + b * a.osb + h * a.osh + qp * a.oss;
+    float* O = a.o + b * a.osb + h * a.osh + qp * a.oss;
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) O[g + TPR * i] = repro::from_f<T>(acc[i] / den);
+    for (int i = 0; i < DPT; ++i) O[g + TPR * i] = acc[i] / den;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 void launch_hd(const FaArgs& a, cudaStream_t st) {
   constexpr int BQ = kThreads / (HD / 16);
-  fa_fwd<T, HD><<<dim3((a.Sq + BQ - 1) / BQ, a.B * a.H), kThreads, 0, st>>>(a);
+  fa_fwd<HD><<<dim3((a.Sq + BQ - 1) / BQ, a.B * a.H), kThreads, 0, st>>>(a);
 }
 
-template <typename T>
 cudaError_t launch(const FaArgs& a, int hd, cudaStream_t st) {
   switch (hd) {
-    case 16: launch_hd<T, 16>(a, st); break;
-    case 32: launch_hd<T, 32>(a, st); break;
-    case 64: launch_hd<T, 64>(a, st); break;
-    case 128: launch_hd<T, 128>(a, st); break;
+    case 16: launch_hd<16>(a, st); break;
+    case 32: launch_hd<32>(a, st); break;
+    case 64: launch_hd<64>(a, st); break;
+    case 128: launch_hd<128>(a, st); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -155,8 +155,9 @@ cudaError_t launch(const FaArgs& a, int hd, cudaStream_t st) {
 
 }  // namespace
 
-extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
-                          int dtype, int B, int Sq, int Sk, int H, int KV,
+extern "C" int fa_forward(const float* q, const float* k, const float* v,
+                          float* o,
+                          int B, int Sq, int Sk, int H, int KV,
                           int hd, long long qsb, long long qss, long long qsh,
                           long long ksb, long long kss, long long ksh,
                           long long vsb, long long vss, long long vsh,
@@ -167,7 +168,5 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
            qsh, ksb, kss, ksh, vsb, vss, vsh, osb,    oss,    osh,   causal,
            window, scale, cap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kF32) return launch<float>(a, hd, st);
-  if (dtype == repro::kBF16) return launch<__nv_bfloat16>(a, hd, st);
-  return cudaErrorInvalidValue;
+  return launch(a, hd, st);
 }

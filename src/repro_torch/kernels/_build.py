@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("flash_attention", "ssd")
+KERNELS = ("flash_attention", "flash_attention_tc", "ssd", "ssd_tc")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,9 +1,13 @@
-"""Launcher of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Launcher of the CUDA flash-attention kernels.
 
 The port's counterpart of ``repro.kernels.flash_attention.kernel``: it
-takes tensors on the card only, checks what the kernel accepts, allocates
-the output and launches on the current stream.  ``launches`` counts the
-launches, so a run can show that its prefill went through the kernel.
+takes tensors on the card only, checks what the kernels accept, allocates
+the output and launches on the current stream.  The dtype alone chooses
+the kernel (:func:`entry`): bf16 runs on the tensor cores
+(``csrc/flash_attention_tc.cu``), f32 on the CUDA cores
+(``csrc/flash_attention.cu``), which keeps the f32 tolerance.  There is no
+fallback from one to the other.  ``launches`` counts the calls that
+launched, so a run can show that its prefill went through the kernels.
 """
 from __future__ import annotations
 
@@ -16,16 +20,28 @@ from .. import _build
 
 launches = 0
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> (library in csrc/, C entry point); both take the same arguments
+ENTRIES = {torch.bfloat16: ("flash_attention_tc", "fa_forward_tc"),
+           torch.float32: ("flash_attention", "fa_forward")}
+DTYPES = tuple(ENTRIES)
 HEAD_DIMS = (16, 32, 64, 128)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-_ARGTYPES = [_P] * 4 + [_I] * 7 + [_L] * 12 + [_I, _I, _F, _F, _P]
+_ARGTYPES = [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _P]
 
 
-def _fn():
-    fn = _build.load("flash_attention").fa_forward
+def entry(dtype: torch.dtype) -> tuple[str, str]:
+    """The kernel that computes ``dtype``: (library, C function)."""
+    if dtype not in ENTRIES:
+        raise TypeError(f"flash_attention kernels take {list(ENTRIES)}, "
+                        f"not {dtype}")
+    return ENTRIES[dtype]
+
+
+def _fn(dtype):
+    lib, name = entry(dtype)
+    fn = getattr(_build.load(lib), name)
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     return fn
 
@@ -69,11 +85,11 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=None):
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               DTYPES[q.dtype], B, Sq, Sk, H, KV, hd,
-               *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-               *out.stride()[:3], int(bool(causal)), int(window),
-               float(scale), float(cap), stream)
+    rc = _fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), B, Sq, Sk, H, KV, hd,
+                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                      *out.stride()[:3], int(bool(causal)), int(window),
+                      float(scale), float(cap), stream)
     _build.check(rc, "flash_attention")
     launches += 1
     return out

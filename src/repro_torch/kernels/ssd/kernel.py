@@ -1,9 +1,13 @@
-"""Launcher of the CUDA SSD chunk-scan kernel (``csrc/ssd.cu``).
+"""Launcher of the CUDA SSD chunk-scan kernels.
 
 The port's counterpart of ``repro.kernels.ssd.kernel``: it takes tensors
-on the card only, checks what the kernel accepts, allocates the outputs and
-launches on the current stream.  ``launches`` counts the launches, so a run
-can show that its prefill went through the kernel.
+on the card only, checks what the kernels accept, allocates the outputs
+and scratch and launches on the current stream.  The dtype of xs, B and C
+alone chooses the kernel (:func:`entry`): bf16 runs on the tensor cores
+(``csrc/ssd_tc.cu``, three launches per call), f32 on the CUDA cores
+(``csrc/ssd.cu``), which keeps the f32 tolerance.  There is no fallback
+from one to the other.  ``launches`` counts the calls that launched, so a
+run can show that its prefill went through the kernels.
 """
 from __future__ import annotations
 
@@ -15,16 +19,28 @@ from .. import _build
 
 launches = 0
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> (library in csrc/, C entry point); the bf16 entry takes one
+# more pointer, its scratch
+ENTRIES = {torch.bfloat16: ("ssd_tc", "ssd_forward_tc"),
+           torch.float32: ("ssd", "ssd_forward")}
+DTYPES = tuple(ENTRIES)
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 1024
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 7 + [_I] * 7 + [_L] * 10 + [_P]
 
 
-def _fn():
-    fn = _build.load("ssd").ssd_forward
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+def entry(dtype: torch.dtype) -> tuple[str, str]:
+    """The kernel that computes ``dtype``: (library, C function)."""
+    if dtype not in ENTRIES:
+        raise TypeError(f"ssd kernels take {list(ENTRIES)}, not {dtype}")
+    return ENTRIES[dtype]
+
+
+def _fn(dtype, n_ptrs):
+    lib, name = entry(dtype)
+    fn = getattr(_build.load(lib), name)
+    fn.argtypes = [_P] * n_ptrs + [_I] * 6 + [_L] * 10 + [_P]
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -68,12 +84,16 @@ def ssd(xs, dt, A, B_, C_, chunk: int = 128):
     N = B_.shape[-1]
     y = torch.empty((B, S, H, P), dtype=xs.dtype, device=xs.device)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=xs.device)
+    ptrs = [t.data_ptr() for t in (xs, dt, A, B_, C_, y, state)]
+    if xs.dtype == torch.bfloat16:   # per-chunk states and decays
+        nc = -(-S // chunk)
+        work = torch.empty(B * H * nc * (2 * P * N + 1), dtype=torch.float32,
+                           device=xs.device)
+        ptrs.append(work.data_ptr())
     stream = torch.cuda.current_stream(xs.device).cuda_stream
-    rc = _fn()(xs.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
-               C_.data_ptr(), y.data_ptr(), state.data_ptr(),
-               DTYPES[xs.dtype], B, S, H, P, N, int(chunk),
-               *xs.stride()[:3], *dt.stride(), *B_.stride()[:2],
-               *C_.stride()[:2], stream)
+    rc = _fn(xs.dtype, len(ptrs))(
+        *ptrs, B, S, H, P, N, int(chunk), *xs.stride()[:3], *dt.stride(),
+        *B_.stride()[:2], *C_.stride()[:2], stream)
     _build.check(rc, "ssd")
     launches += 1
     return y, state

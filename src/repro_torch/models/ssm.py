@@ -73,7 +73,10 @@ def ssd_chunked(xs, dt, A, B_, C_, chunk: int):
     xs_, dt_, Bc, Cc = r(xs_p), r(dt.float()), r(B_), r(C_)
 
     a = dt_ * A.float()                                       # [B,nc,l,H]
-    cum = torch.cumsum(a, dim=2)                              # within-chunk
+    # within-chunk cumsum, accumulated in f64 and rounded once: |cum|
+    # reaches the hundreds at long chunks, where the order of an f32 scan
+    # moves exp(cum_i - cum_j) by ~1e-4 (the CUDA kernels scan in f64 too)
+    cum = torch.cumsum(a.double(), dim=2).float()
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # [B,nc,i,j,H]
     li = torch.arange(chunk, device=xs.device)
     causal = (li[:, None] >= li[None, :])[None, None, :, :, None]
@@ -89,7 +92,7 @@ def ssd_chunked(xs, dt, A, B_, C_, chunk: int):
     decay_out = torch.exp(cum[:, :, -1:, :] - cum)            # [B,nc,l,H]
     wB = (decay_out * dt_)[..., None] * Bc.float()[:, :, :, None, :]
     contrib = torch.einsum("bcjhn,bcjhp->bchpn", wB, xs_.float())
-    chunk_decay = torch.exp(torch.sum(a, dim=2))              # [B,nc,H]
+    chunk_decay = torch.exp(cum[:, :, -1])                    # [B,nc,H]
 
     h = torch.zeros((B, H, Pd, N), dtype=torch.float32, device=xs.device)
     h_prevs = []

@@ -104,3 +104,81 @@ def test_cpu_path_never_launches_and_kernel_refuses_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         fa_kernel.flash_attention(q, k, v)
     assert fa_kernel.launches == before
+
+
+def _tc_rounding(q, k, v, *, causal=True, window=0, cap=0.0, block=64):
+    """The bf16 tensor-core kernel's arithmetic in plain PyTorch: f32
+    scores from the bf16 inputs, online softmax over 64-key tiles with
+    the denominator summed from the f32 probabilities, and P rounded to
+    bf16 only as the operand of P.V (f32 accumulator)."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    scale = 1.0 / np.sqrt(hd)
+    qf = q.float().transpose(1, 2)                             # [B,H,S,hd]
+    kf = k.float().repeat_interleave(G, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, 2).transpose(1, 2)
+    m = torch.full((B, H, S), -1e30)
+    l = torch.zeros((B, H, S))
+    acc = torch.zeros((B, H, S, hd))
+    qp = torch.arange(S)[:, None]
+    for k0 in range(0, S, block):
+        kp = torch.arange(k0, min(S, k0 + block))[None, :]
+        s = qf @ kf[:, :, k0:k0 + block].transpose(-1, -2) * scale
+        if cap:
+            s = torch.tanh(s / cap) * cap
+        ok = torch.ones_like(s, dtype=torch.bool)
+        if causal:
+            ok = ok & (kp <= qp)
+        if window > 0:
+            ok = ok & (qp - kp < window)
+        s = torch.where(ok, s, -1e30)
+        m2 = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m2[..., None])
+        corr = torch.exp(m - m2)
+        l = l * corr + p.sum(-1)
+        pv = p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + block]
+        acc = acc * corr[..., None] + pv
+        m = m2
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("S,window,block", [(200, 0, 200), (1100, 300, 275)])
+def test_tc_rounding_holds_bf16_tolerance(S, window, block):
+    """The bf16 kernel's rounding points, at hymba's widths (25 query and
+    5 KV heads of 64), against the JAX kernel in interpret mode at 2e-2.
+    The JAX kernel asserts S % block == 0, so its blocks divide S; the
+    function does not depend on them."""
+    H, KV, hd = 25, 5, 64
+    (jq, jk, jv), (q, k, v) = _both(_mk(1, S, H, KV, hd, seed=S), "bfloat16")
+    kern = jax_fa.flash_attention(jq, jk, jv, n_kv_heads=KV, causal=True,
+                                  window=window, block_q=block,
+                                  block_k=block, interpret=True)
+    out = _tc_rounding(q, k, v, causal=True, window=window)
+    assert out.dtype == torch.bfloat16
+    _close(out, kern, DTYPES["bfloat16"][2])
+
+
+def test_dtype_alone_routes_to_a_kernel():
+    """bf16 goes to the tensor-core kernel and f32 to the CUDA-core one;
+    each entry names a C function that its source exports.  Both dtypes
+    are still refused on the CPU, and nothing launches."""
+    from repro_torch.kernels import _build
+    assert fa_kernel.entry(torch.bfloat16) == ("flash_attention_tc",
+                                               "fa_forward_tc")
+    assert fa_kernel.entry(torch.float32) == ("flash_attention",
+                                              "fa_forward")
+    with pytest.raises(TypeError):
+        fa_kernel.entry(torch.float16)
+    for dtype in fa_kernel.DTYPES:
+        lib, fn = fa_kernel.entry(dtype)
+        assert lib in _build.KERNELS
+        assert f'extern "C" int {fn}(' in \
+            (_build.CSRC / f"{lib}.cu").read_text()
+        (_, (q, k, v)) = _both(_mk(1, 32, 2, 1, 16),
+                               "bfloat16" if dtype == torch.bfloat16
+                               else "float32")
+        before = fa_kernel.launches
+        with pytest.raises(ValueError, match="CUDA"):
+            fa_kernel.flash_attention(q, k, v)
+        assert fa_kernel.launches == before

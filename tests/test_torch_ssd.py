@@ -107,3 +107,77 @@ def test_cpu_path_never_launches_and_kernel_refuses_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         ssd_kernel.ssd(*t, chunk=8)
     assert ssd_kernel.launches == before
+
+
+def _split(v):
+    """v as the kernel feeds it to a product: hi + lo, both bf16."""
+    hi = v.to(torch.bfloat16).float()
+    return hi + (v - hi).to(torch.bfloat16).float()
+
+
+def _tc_rounding(xs, dt, A, B_, C_, chunk):
+    """The bf16 tensor-core kernels' arithmetic in plain PyTorch: x, B and
+    C enter the products as they are (bf16); the decayed scores, B o w and
+    the state entering a chunk enter as two bf16 terms (``_split``); every
+    product accumulates in f32; y is rounded to bf16 at the end."""
+    Bb, S, H, P = xs.shape
+    N = B_.shape[-1]
+    x, Bm, Cm = xs.float(), B_.float(), C_.float()
+    y = torch.empty((Bb, S, H, P))
+    h = torch.zeros((Bb, H, P, N))
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, min(S, c0 + chunk))
+        cum = torch.cumsum(dt[:, sl] * A, 1)                  # [B,l,H]
+        l = cum.shape[1]
+        causal = torch.tril(torch.ones(l, l, dtype=torch.bool))[None, :, :,
+                                                                None]
+        seg = cum[:, :, None, :] - cum[:, None, :, :]         # [B,i,j,H]
+        L = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)),
+                        0.0)
+        cb = torch.einsum("bin,bjn->bij", Cm[:, sl], Bm[:, sl])
+        scores = _split(cb[..., None] * L * dt[:, sl][:, None])
+        y[:, sl] = torch.einsum("bijh,bjhp->bihp", scores, x[:, sl]) + \
+            torch.einsum("bin,bhpn->bihp", Cm[:, sl], _split(h)) * \
+            torch.exp(cum)[..., None]
+        w = dt[:, sl] * torch.exp(cum[:, -1:] - cum)          # [B,l,H]
+        Bw = _split(Bm[:, sl][:, :, None, :] * w[..., None])  # [B,l,H,N]
+        h = h * torch.exp(cum[:, -1])[:, :, None, None] + \
+            torch.einsum("bjhp,bjhn->bhpn", x[:, sl], Bw)
+    return y.to(xs.dtype), h
+
+
+@pytest.mark.parametrize("S,N,chunk,jax_chunk", [(200, 16, 128, 100),
+                                                 (300, 128, 256, 150)])
+def test_tc_rounding_holds_bf16_tolerance(S, N, chunk, jax_chunk):
+    """The bf16 kernels' rounding points at hymba's widths (P=64, N=16,
+    chunk 128, S ragged) and at N=128, chunk 256, against the JAX kernel
+    in interpret mode at 5e-2.  The JAX kernel asserts S % chunk == 0, so
+    its chunk divides S; the function does not depend on the chunk."""
+    j, t = _both(_mk(1, S, 4, 64, N, seed=S), "bfloat16")
+    y, hT = _tc_rounding(*t, chunk)
+    yj, hj = jax_ssd.ssd(*j, chunk=jax_chunk, interpret=True)
+    assert y.dtype == torch.bfloat16 and y.shape == (1, S, 4, 64)
+    _close(y, yj, DTYPES["bfloat16"][2])
+    _close(hT, hj, DTYPES["bfloat16"][2])
+
+
+def test_dtype_alone_routes_to_a_kernel():
+    """bf16 goes to the tensor-core kernels and f32 to the CUDA-core one;
+    each entry names a C function that its source exports.  Both dtypes
+    are still refused on the CPU, and nothing launches."""
+    from repro_torch.kernels import _build
+    assert ssd_kernel.entry(torch.bfloat16) == ("ssd_tc", "ssd_forward_tc")
+    assert ssd_kernel.entry(torch.float32) == ("ssd", "ssd_forward")
+    with pytest.raises(TypeError):
+        ssd_kernel.entry(torch.float16)
+    for dtype in ssd_kernel.DTYPES:
+        lib, fn = ssd_kernel.entry(dtype)
+        assert lib in _build.KERNELS
+        assert f'extern "C" int {fn}(' in \
+            (_build.CSRC / f"{lib}.cu").read_text()
+        _, t = _both(_mk(1, 16, 2, 16, 8),
+                     "bfloat16" if dtype == torch.bfloat16 else "float32")
+        before = ssd_kernel.launches
+        with pytest.raises(ValueError, match="CUDA"):
+            ssd_kernel.ssd(*t, chunk=8)
+        assert ssd_kernel.launches == before
