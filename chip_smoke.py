@@ -23,9 +23,21 @@ Phases (each raises on failure, and the run then exits non-zero):
      every prefill;
   4. profile: device busy share (the union of kernel intervals: the SSD
      kernels overlap) and kernel time by group for one prefill and for
-     decode steps with every slot active (torch.profiler).
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+     decode steps with every slot active (torch.profiler);
+  5. engine: the Akita engine and the memsys simulator, each block of
+     epochs a captured CUDA graph.  All five workload patterns at 16 cores
+     and 96 requests a core, by benchmarks/smart_ticking.py's procedure,
+     Smart Ticking and naive: the stats must equal MEMSYS_REF (from the
+     JAX package), stat_err must be 0, and idle_half's whole final state
+     must equal the port's CPU run and an eager K=1 run on the card, bit
+     for bit; then 64 cores x 256 requests (mixed) to completion, with
+     wall time, epochs/s, simulated cycles/s, kernels per epoch and the
+     device-busy share of one block.  This path has no hand-written
+     kernel: the reference's epoch is plain jnp code.
+Then the engine's JSON record, the kernels' JSON record (the line before
+the last), and ``{"ok": true, "device": {...}}`` as the last line.
+``python3 chip_smoke.py --engine`` runs phase 5 alone.  Imports nothing
+of JAX.
 """
 from __future__ import annotations
 
@@ -74,6 +86,77 @@ SSD_EDGE = [
 MAMBA2_SSD = (1, 512, 24, 64, 128, 256)
 PROMPT_LENS = (256, 200, 384, 130, 64)
 MAX_NEW = 32
+
+# phase 5: memsys at 16 cores and 96 requests a core, by the procedure of
+# benchmarks/smart_ticking.py (Smart Ticking to completion, horizon =
+# ceil(virtual time) + 2, then Smart Ticking and naive to the horizon).
+# finish_stats, progress_ticks and the per-component busy vector of the
+# JAX package on the CPU; CHANGES.md (PR 13) has the command that made it.
+MEMSYS_PATTERNS = ("compute", "stream", "pointer", "idle_half", "mixed")
+MEMSYS_REF = {
+    "compute": dict(
+        horizon=15270.0,
+        smart=dict(virtual_time=15268.0, epochs=3937, ticks=11185,
+                   delivered=6144, reads_done=1536, hits=0, misses=1536,
+                   remaining=0, outstanding=0, progress_ticks=6160,
+                   busy=[97] * 16 + [192] * 16 + [1536]),
+        naive=dict(virtual_time=15271.0, epochs=15271, ticks=503943,
+                   delivered=6144, reads_done=1536, hits=0, misses=1536,
+                   remaining=0, outstanding=0, progress_ticks=6160,
+                   busy=[97] * 16 + [192] * 16 + [1536]),
+    ),
+    "stream": dict(
+        horizon=15270.0,
+        smart=dict(virtual_time=15268.0, epochs=3937, ticks=11185,
+                   delivered=6144, reads_done=1536, hits=0, misses=1536,
+                   remaining=0, outstanding=0, progress_ticks=6160,
+                   busy=[97] * 16 + [192] * 16 + [1536]),
+        naive=dict(virtual_time=15271.0, epochs=15271, ticks=503943,
+                   delivered=6144, reads_done=1536, hits=0, misses=1536,
+                   remaining=0, outstanding=0, progress_ticks=6160,
+                   busy=[97] * 16 + [192] * 16 + [1536]),
+    ),
+    "pointer": dict(
+        horizon=15270.0,
+        smart=dict(virtual_time=15268.0, epochs=3937, ticks=11185,
+                   delivered=6144, reads_done=1536, hits=0, misses=1536,
+                   remaining=0, outstanding=0, progress_ticks=6160,
+                   busy=[97] * 16 + [192] * 16 + [1536]),
+        naive=dict(virtual_time=15271.0, epochs=15271, ticks=503943,
+                   delivered=6144, reads_done=1536, hits=0, misses=1536,
+                   remaining=0, outstanding=0, progress_ticks=6160,
+                   busy=[97] * 16 + [192] * 16 + [1536]),
+    ),
+    "idle_half": dict(
+        horizon=6373.0,
+        smart=dict(virtual_time=6371.0, epochs=1737, ticks=5609,
+                   delivered=3072, reads_done=768, hits=0, misses=768,
+                   remaining=0, outstanding=0, progress_ticks=3080,
+                   busy=[97] * 8 + [0] * 8 + [192] * 8 + [0] * 8 + [768]),
+        naive=dict(virtual_time=6374.0, epochs=6374, ticks=210342,
+                   delivered=3072, reads_done=768, hits=0, misses=768,
+                   remaining=0, outstanding=0, progress_ticks=3080,
+                   busy=[97] * 8 + [0] * 8 + [192] * 8 + [0] * 8 + [768]),
+    ),
+    "mixed": dict(
+        horizon=15270.0,
+        smart=dict(virtual_time=15268.0, epochs=3937, ticks=11185,
+                   delivered=6144, reads_done=1536, hits=0, misses=1536,
+                   remaining=0, outstanding=0, progress_ticks=6160,
+                   busy=[97] * 16 + [192] * 16 + [1536]),
+        naive=dict(virtual_time=15271.0, epochs=15271, ticks=503943,
+                   delivered=6144, reads_done=1536, hits=0, misses=1536,
+                   remaining=0, outstanding=0, progress_ticks=6160,
+                   busy=[97] * 16 + [192] * 16 + [1536]),
+    ),
+}
+# full width: 64 cores (the R9 Nano's compute units, MGPUSim's default GPU)
+# and 256 requests a core (examples/simulate_gpu.py), pattern mixed, Smart
+# Ticking to completion (JAX package on the CPU)
+# horizon of the eager K=1 run held against the graph (idle_half)
+MEMSYS_EAGER_UNTIL = 1000.0
+MEMSYS64 = dict(n_cores=64, n_reqs=256, pattern="mixed", epochs=38121,
+                virtual_time=135940.0)
 
 
 def log(*a):
@@ -658,6 +741,249 @@ def _profile(model):
 
 
 # ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+def _leaves(tree, path=()):
+    import dataclasses
+
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return {".".join(path): tree}
+    if tree is None:
+        return {}
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    else:
+        items = [(f.name, getattr(tree, f.name))
+                 for f in dataclasses.fields(tree)]
+    out = {}
+    for k, v in items:
+        out.update(_leaves(v, path + (k,)))
+    return out
+
+
+def _state_diff(a, b):
+    """Leaves of two engine states that differ in dtype, shape or bits."""
+    import torch
+    la, lb = _leaves(a), _leaves(b)
+    bad = sorted(set(la) ^ set(lb))
+    for k in sorted(set(la) & set(lb)):
+        x, y = la[k].cpu(), lb[k].cpu()
+        if x.dtype != y.dtype or x.shape != y.shape:
+            bad.append(k)
+            continue
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            bad.append(k)
+    return bad
+
+
+def _memsys_stats(tm, sim, st):
+    return {**tm.finish_stats(sim, st),
+            "progress_ticks": int(st.stats.progress_ticks),
+            "busy": st.stats.busy.cpu().tolist()}
+
+
+def _timed_run(sim, st, until):
+    """Wall time of one run on the card, with the block graph captured
+    beforehand (a run to a horizon before the first event captures it and
+    replays one block of no-op epochs)."""
+    import torch
+    sim.run(sim.copy_state(st), until=-1.0)
+    st = sim.copy_state(st)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = sim.run(st, until=until)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _profile_block(sim, st0, mid):
+    """What one live block costs: run to ``mid``, lift the horizon, then
+    replay the block once and synchronise (as ``run`` does; the host's
+    replay call timed apart), five times back to back (wall clock and
+    CUDA events), and once under torch.profiler for the kernel count and
+    the busy share: the union of the kernels' intervals over the span from
+    the first kernel's start to the last one's end, both from that trace
+    (the profiler stretches tiny kernels, so its busy time is not held
+    against the unprofiled wall clock)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sim.run(sim.copy_state(st0), until=mid)
+    g = sim.last_graph
+    g.until.fill_(1e6)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    g.graph.replay()
+    launch = (time.perf_counter() - t) * 1e6
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e6
+    # back to back, with no read of ``live`` between them: the host's
+    # launch of one replay overlaps the device's run of the one before
+    reps = 5
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        g.graph.replay()
+    end.record()
+    end.synchronize()
+    b2b = (time.perf_counter() - t) * 1e6 / reps
+    b2b_dev = start.elapsed_time(end) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        g.graph.replay()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        raise AssertionError("torch.profiler saw no kernel in a block "
+                             "graph replay")
+    busy, end_t = 0.0, float("-inf")
+    for e in sorted(kern, key=lambda e: e.time_range.start):
+        lo, hi = max(e.time_range.start, end_t), e.time_range.end
+        busy += max(0.0, hi - lo)
+        end_t = max(end_t, hi)
+    span = end_t - min(e.time_range.start for e in kern)
+    return dict(kernels=len(kern), busy_us=busy, span_us=span,
+                wall_us=wall, launch_us=launch, b2b_wall_us=b2b,
+                b2b_device_us=b2b_dev)
+
+
+def check_engine():
+    """Phase 5: the Akita engine and memsys on the card.  (a) the five
+    patterns at 16 cores and 96 requests, Smart Ticking and naive, against
+    MEMSYS_REF, with stat_err 0; idle_half's whole final state on the card
+    against the port's CPU run and against an eager K=1 run on the card;
+    (b) 64 cores and 256 requests a core, mixed, to completion."""
+    import numpy as np
+    import torch
+    from repro_torch.sims import memsys as tm
+
+    t_phase = time.perf_counter()
+    rec = {"patterns": {}}
+    keep = {}
+    for pattern in MEMSYS_PATTERNS:
+        ref = MEMSYS_REF[pattern]
+        kw = dict(n_cores=16, pattern=pattern, n_reqs=96)
+        sim, st0 = tm.build(**kw)
+        first = sim.run(sim.copy_state(st0), until=100000.0)
+        horizon = float(np.ceil(tm.finish_stats(sim, first)["virtual_time"])) \
+            + 2
+        if horizon != ref["horizon"]:
+            raise AssertionError(f"memsys {pattern}: horizon {horizon}, "
+                                 f"want {ref['horizon']}")
+        smart, dt_s = _timed_run(sim, st0, horizon)
+        simn, stn = tm.build(naive=True, **kw)
+        naive, dt_n = _timed_run(simn, stn, horizon)
+        got = {"smart": _memsys_stats(tm, sim, smart),
+               "naive": _memsys_stats(tm, simn, naive)}
+        for mode in ("smart", "naive"):
+            if got[mode] != ref[mode]:
+                raise AssertionError(f"memsys {pattern} {mode}: "
+                                     f"{got[mode]} != MEMSYS_REF "
+                                     f"{ref[mode]}")
+        err = 0.0
+        for k in ("reads_done", "hits", "misses", "delivered"):
+            if got["naive"][k]:
+                err = max(err, abs(got["smart"][k] - got["naive"][k])
+                          / got["naive"][k])
+        if err != 0.0:
+            raise AssertionError(f"memsys {pattern}: stat_err {err}")
+        rec["patterns"][pattern] = dict(
+            smart_s=dt_s, naive_s=dt_n, speedup=dt_n / dt_s,
+            epochs=[got["smart"]["epochs"], got["naive"]["epochs"]],
+            stat_err=err)
+        log(f"memsys {pattern} 16 cores x 96 requests: smart "
+            f"{got['smart']['epochs']} epochs in {dt_s:.3f} s, naive "
+            f"{got['naive']['epochs']} epochs in {dt_n:.3f} s, speedup "
+            f"{dt_n / dt_s:.2f}x, stat_err {err}; MEMSYS_REF matched")
+        if pattern == "idle_half":
+            keep = dict(sim=sim, st0=st0, smart=smart, horizon=horizon)
+
+    # idle_half, Smart Ticking: the card's state against the port's CPU
+    # run and against an eager K=1 run of the same block on the card
+    kw = dict(n_cores=16, pattern="idle_half", n_reqs=96)
+    sim_c, st_c = tm.build(device="cpu", **kw)
+    t = time.perf_counter()
+    cpu = sim_c.run(st_c, until=keep["horizon"])
+    dt_cpu = time.perf_counter() - t
+    bad = _state_diff(keep["smart"], cpu)
+    if bad:
+        raise AssertionError(f"idle_half: card and CPU states differ at "
+                             f"{bad}")
+    # the eager K=1 run launches every op from Python, so it stops at a
+    # mid-run horizon, where the graph's run ends inside a block
+    mid = MEMSYS_EAGER_UNTIL
+    graph_mid = keep["sim"].run(keep["sim"].copy_state(keep["st0"]),
+                                until=mid)
+    sim_e, st_e = tm.build(super_epoch=1, cuda_graph=False, **kw)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eager = sim_e.run(st_e, until=mid)
+    torch.cuda.synchronize()
+    dt_eager = time.perf_counter() - t
+    bad = _state_diff(graph_mid, eager)
+    if bad:
+        raise AssertionError(f"idle_half: graph (K={keep['sim'].super_epoch})"
+                             f" and eager K=1 states differ at {bad}")
+    n_leaves = len(_leaves(cpu))
+    log(f"idle_half smart: the card's final state (graph, K="
+        f"{keep['sim'].super_epoch}) equals the port's CPU run "
+        f"({dt_cpu:.3f} s), all {n_leaves} leaves, f32 by bits; at "
+        f"until={mid} ({int(eager.stats.epochs)} epochs) the graph's state "
+        f"equals an eager K=1 run on the card ({dt_eager:.3f} s)")
+    rec.update(idle_half_cpu_s=dt_cpu, idle_half_eager_k1_s=dt_eager,
+               eager_until=mid, card_equals_cpu=True,
+               graph_equals_eager=True)
+
+    # (b) full width
+    ref64 = MEMSYS64
+    sim, st0 = tm.build(n_cores=ref64["n_cores"], pattern=ref64["pattern"],
+                        n_reqs=ref64["n_reqs"])
+    t = time.perf_counter()
+    sim.run(sim.copy_state(st0), until=-1.0)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    out, wall = _timed_run(sim, st0, 1e6)
+    s64 = tm.finish_stats(sim, out)
+    if (s64["epochs"], s64["virtual_time"], s64["remaining"],
+            s64["outstanding"]) != (ref64["epochs"], ref64["virtual_time"],
+                                    0, 0):
+        raise AssertionError(f"memsys 64 cores: {s64}, want epochs "
+                             f"{ref64['epochs']} and virtual time "
+                             f"{ref64['virtual_time']}, all drained")
+    blk = _profile_block(sim, st0, 5000.0)
+    K, n_kern = sim.super_epoch, blk["kernels"]
+    rec["full_width"] = dict(
+        n_cores=ref64["n_cores"], n_reqs=ref64["n_reqs"], K=K,
+        epochs=s64["epochs"], virtual_time=s64["virtual_time"],
+        wall_s=wall, capture_s=capture_s,
+        epochs_per_s=s64["epochs"] / wall,
+        cycles_per_s=s64["virtual_time"] / wall,
+        kernels_per_block=n_kern, kernels_per_epoch=n_kern / K,
+        busy_share=blk["busy_us"] / blk["span_us"],
+        **{f"block_{k}": v for k, v in blk.items() if k != "kernels"})
+    log(f"memsys 64 cores x 256 requests, mixed, Smart Ticking: "
+        f"{s64['epochs']} epochs, virtual time {s64['virtual_time']} in "
+        f"{wall:.3f} s ({s64['epochs'] / wall:.1f} epochs/s, "
+        f"{s64['virtual_time'] / wall:.1f} simulated cycles/s; capture "
+        f"{capture_s:.3f} s)")
+    log(f"one block of K={K}: {n_kern} kernels ({n_kern / K:.2f} per "
+        f"epoch); replay then sync {blk['wall_us']:.1f} us, of which the "
+        f"host's replay call {blk['launch_us']:.1f} us; back to back "
+        f"{blk['b2b_wall_us']:.1f} us a block (CUDA events "
+        f"{blk['b2b_device_us']:.1f} us); profiled, device busy "
+        f"{blk['busy_us']:.1f} us of a {blk['span_us']:.1f} us span "
+        f"({100 * blk['busy_us'] / blk['span_us']:.1f}%)")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 5 (engine) took {rec['phase_s']:.1f} s")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 def main():
     try:
         import torch
@@ -675,6 +1001,13 @@ def main():
         return 1
 
     dev = torch.device("cuda", 0)
+    if sys.argv[1:] == ["--engine"]:
+        # phase 5 alone, after the card line
+        log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, check=True).stdout.strip())
+        print(json.dumps({"engine": check_engine()}), flush=True)
+        return 0
     setup()
     gen = torch.Generator(device=dev).manual_seed(0)
     fa = check_flash(dev, gen)
@@ -682,6 +1015,8 @@ def main():
     f32_launches = check_small_model(dev)
     launches, model = serve_hymba(dev)
     _profile(model)
+    del model
+    engine = check_engine()
 
     fa_src = "src/repro/kernels/flash_attention/kernel.py:25"
     ssd_src = "src/repro/kernels/ssd/kernel.py:23"
@@ -703,6 +1038,7 @@ def main():
     ]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
+    print(json.dumps({"engine": engine}))
     print(json.dumps({"kernels": [{k: kr[k] for k in keys}
                                   for kr in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,16 @@
-"""Host-side infrastructure the port needs: task tracing."""
+"""repro_torch.core — the Akita simulation engine in PyTorch, and the
+host-side task tracing.  Counterpart of ``repro.core``; the tracers, the
+monitor, the Daisen export and the PDES layer are not ported yet."""
+from .component import ComponentKind, KindHandle, TickResult
+from .engine import (SimBuilder, SimParams, SimState, Simulation, Stats,
+                     check_not_consumed)
+from .message import (MSG_WORDS, f2i, i2f, msg_new, msg_reply, opcode,
+                      payload, ready_time)
+from .ports import Ports, oh_set
+
+__all__ = [
+    "ComponentKind", "KindHandle", "TickResult", "SimBuilder", "SimParams",
+    "SimState", "Simulation", "Stats", "check_not_consumed", "Ports",
+    "MSG_WORDS", "msg_new",
+    "msg_reply", "opcode", "payload", "ready_time", "f2i", "i2f", "oh_set",
+]

@@ -24,6 +24,8 @@ def _modules():
 def test_importing_every_module_loads_no_jax_or_repro():
     mods = _modules()
     assert "repro_torch.serve.engine" in mods
+    assert "repro_torch.core.engine" in mods
+    assert "repro_torch.sims.memsys" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
