@@ -34,10 +34,25 @@ Phases (each raises on failure, and the run then exits non-zero):
      wall time, epochs/s, simulated cycles/s, kernels per epoch and the
      device-busy share of one block.  This path has no hand-written
      kernel: the reference's epoch is plain jnp code.
-Then the engine's JSON record, the kernels' JSON record (the line before
-the last), and ``{"ok": true, "device": {...}}`` as the last line.
-``python3 chip_smoke.py --engine`` runs phase 5 alone.  Imports nothing
-of JAX.
+  6. dse: the batched lanes (``repro_torch.dse``), each round's block of
+     epochs for every lane one captured CUDA graph.  (a) 256 design points
+     at memsys 16 cores x 96 requests with per-lane horizons, through
+     ``run_sweep`` (autotuner and depth-2 pipeline), through
+     ``run_sweep(pipeline=False)`` and as one ``run_batch``: the three
+     give identical rows, equal to SWEEP_REF (from the JAX package), and
+     lanes 0, 85, 170 and 255 equal single runs on the card, whole final
+     state, f32 by bits; (b) the ``shape.core`` topology family, 15 rows
+     against SWEEP_REF; (c) 32 lanes at 64 cores x 256 requests, whose
+     lane 0 (the build's defaults) ends at MEMSYS64.  Wall time,
+     configs/s, rounds, chunk, quantum, overlap share and captures of each
+     sweep, a block's time and kernels an epoch at 1 lane and at the top
+     rung, and the batching ratio against 4 single runs.  No hand-written
+     kernel either: the reference's batched loop is ``jax.vmap`` of the
+     same jnp code.
+Then the engine's and the DSE path's JSON records, the kernels' JSON
+record (the line before the last), and ``{"ok": true, "device": {...}}``
+as the last line.  ``python3 chip_smoke.py --engine`` runs phase 5 alone,
+``python3 chip_smoke.py --dse`` phase 6.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -158,6 +173,57 @@ MEMSYS_EAGER_UNTIL = 1000.0
 MEMSYS64 = dict(n_cores=64, n_reqs=256, pattern="mixed", epochs=38121,
                 virtual_time=135940.0)
 
+# phase 6: the batched lanes.  (a) 256 points of
+# benchmarks/dse_throughput.py's _points at memsys 16 cores x 96 requests
+# (mixed), each with its own horizon, spread 8x below mixed's MEMSYS_REF
+# horizon; (b) the shape.core family of examples/sweep_topology.py widened
+# to 16 cores; (c) 32 lanes at 64 cores x 256 requests.  SWEEP_REF: the JAX
+# package's rows on the CPU for (a) and (b) (default_extract's fields; the
+# sha256 of the canonical JSON of all rows, each column's sum and 8 sampled
+# rows, as axes + DSE_ROW); CHANGES.md has the command that made it.
+DSE_ROW = ("virtual_time", "epochs", "ticks", "progress_ticks", "delivered")
+DSE_SAMPLED = (0, 85, 170, 255)       # lanes held against single runs
+SWEEP_REF = {
+    "sweep256": dict(
+        n=256,
+        sha256="ed2be16f3f3191062ad6dce5c885712a"
+               "7cdbd4387febf467bd4bf920c7c74df2",
+        sums=dict(virtual_time=1596848.0, epochs=884320, ticks=2166460,
+                  progress_ticks=1185726, delivered=1093607),
+        axes=("conn_latency[-1]", "kind.l1.extra_hit_rate"),
+        sample={
+            0: (10.0, 0.0, 1908.0, 1557, 5059, 2782, 2774),
+            1: (10.117647058823529, 0.02196078431372549, 2482.0, 1888, 6129,
+                 3370, 3352),
+            37: (14.352941176470587, 0.009411764705882354, 7999.0, 4878, 11359,
+                 6136, 6110),
+            85: (20.0, 0.26039215686274514, 8148.0, 4654, 10321, 5611, 5348),
+            128: (25.058823529411764, 0.40156862745098043, 8581.0, 4627, 9666,
+                 5291, 4890),
+            170: (30.0, 0.5207843137254903, 5995.0, 3760, 8396, 4626, 4170),
+            201: (33.64705882352941, 0.39843137254901967, 10428.0, 4917, 9572,
+                 5230, 4839),
+            255: (40.0, 0.7811764705882354, 5093.0, 3723, 8151, 4502, 3736),
+        }),
+    "family": dict(
+        n=15,
+        sha256="49cbd114541cabf82fc7fbcd3da5c150"
+               "7bcc0157c16a5c472f7bc97bf2b324fb",
+        sums=dict(virtual_time=80041.0, epochs=27841, ticks=56684,
+                  progress_ticks=30798, delivered=28530),
+        axes=("shape.core", "kind.l1.extra_hit_rate"),
+        sample={
+            0: (1, 0.0, 6337.0, 770, 772, 385, 384),
+            2: (1, 0.8, 2353.0, 544, 546, 309, 234),
+            4: (2, 0.4, 4261.0, 1189, 1307, 690, 612),
+            6: (4, 0.0, 6340.0, 1349, 2797, 1540, 1536),
+            8: (4, 0.8, 2247.0, 1418, 2065, 1147, 914),
+            10: (8, 0.4, 4424.0, 2949, 5003, 2577, 2458),
+            12: (16, 0.0, 15268.0, 3937, 11185, 6160, 6144),
+            14: (16, 0.8, 3336.0, 2827, 8076, 4467, 3686),
+        }),
+}
+
 
 def log(*a):
     print(*a, flush=True)
@@ -233,10 +299,7 @@ def compare(name, out, ref, dtype_name):
 def setup():
     import torch
     from repro_torch.kernels import _build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    log(_card())
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     t = time.perf_counter()
@@ -984,6 +1047,260 @@ def check_engine():
 
 
 # ---------------------------------------------------------------------------
+# phase 6
+# ---------------------------------------------------------------------------
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _dse_points(b):
+    """benchmarks/dse_throughput.py's ``_points``: b design points spreading
+    crossbar latency and L1 boost."""
+    return [{"conn_latency[-1]": 10.0 + (30.0 * i) / max(b - 1, 1),
+             "kind.l1.extra_hit_rate": 0.8 * ((i * 7) % b) / max(b - 1, 1)}
+            for i in range(b)]
+
+
+def _dse_untils(b, top):
+    """benchmarks/dse_throughput.py's ``_mixed_untils`` with its top
+    horizon set to ``top``: per-lane horizons spread 8x."""
+    import numpy as np
+    lo = top / 8
+    mix = (np.arange(b) * 11) % b
+    return (lo + (top - lo) * mix / max(b - 1, 1)).astype(np.float32)
+
+
+def _check_rows(name, rows, ref):
+    """Rows against a SWEEP_REF entry; on a mismatch, print the sampled
+    rows' differences and fail."""
+    import hashlib
+    digest = hashlib.sha256(json.dumps(rows, sort_keys=True, separators=(
+        ",", ":")).encode()).hexdigest()
+    sums = {c: sum(r[c] for r in rows) for c in DSE_ROW}
+    if (len(rows), digest, sums) == (ref["n"], ref["sha256"], ref["sums"]):
+        return
+    cols = ref["axes"] + DSE_ROW
+    for i, want in ref["sample"].items():
+        got = tuple(rows[i].get(c) for c in cols) if i < len(rows) else None
+        if got != want:
+            log(f"{name} row {i}: " + ", ".join(
+                f"{c} {g!r} != {w!r}" for c, g, w in
+                zip(cols, got or (None,) * len(cols), want) if g != w))
+    raise AssertionError(f"{name}: {len(rows)} rows, sha256 {digest}, sums "
+                         f"{sums}; SWEEP_REF has {ref['n']}, "
+                         f"{ref['sha256']}, {ref['sums']}")
+
+
+def _timed_sweep(name, card, runner, warm, sweep):
+    """Warm the ladder (its captures timed apart), then time one sweep
+    on the host's clock, ending in a device sync."""
+    import torch
+    tc0 = runner.trace_count
+    t = time.perf_counter()
+    warm()
+    torch.cuda.synchronize()
+    cap_s, caps = time.perf_counter() - t, runner.trace_count - tc0
+    tc0 = runner.trace_count
+    runner.last_rounds = None
+    t = time.perf_counter()
+    out = sweep()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    rows = out[0] if isinstance(out, tuple) else out
+    lr = runner.last_rounds or {}
+    rec = dict(points=len(rows), wall_s=wall,
+               configs_per_s=len(rows) / wall,
+               rounds=lr.get("rounds"), chunk=lr.get("chunk"),
+               quantum=lr.get("quantum"), pipeline=lr.get("pipeline"),
+               overlap_frac=lr.get("overlap_frac"),
+               captures=caps, capture_s=cap_s,
+               captures_in_sweep=runner.trace_count - tc0,
+               epochs=sum(r["epochs"] for r in rows),
+               slowest_lane_epochs=max(r["epochs"] for r in rows))
+    if rec["captures_in_sweep"]:
+        raise AssertionError(f"{name}: {rec['captures_in_sweep']} captures "
+                             "inside the timed sweep after warm_ladder")
+    log(f"[{card}] {name}: {len(rows)} points in {wall:.3f} s "
+        f"({rec['configs_per_s']:.2f} configs/s), {rec['rounds']} rounds, "
+        f"chunk {rec['chunk']}, final quantum {rec['quantum']}, pipeline "
+        f"{rec['pipeline']}, overlap_frac {rec['overlap_frac']}, "
+        f"{rec['epochs']} lane-epochs (slowest lane "
+        f"{rec['slowest_lane_epochs']}); ladder warmed first: {caps} "
+        f"captures in {cap_s:.3f} s")
+    return out, rec
+
+
+def _lane_block_profile(sim, st, pts):
+    """One lane-batched block at len(pts) lanes, lifted horizon: CUDA-event
+    time of five back-to-back steps, and the kernels of one step under
+    torch.profiler."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.dse import build_param_batch, stack_states
+    b = len(pts)
+    sb, pb = stack_states(st, b), build_param_batch(sim, pts)
+    blk, _ = sim.lane_block(sb, pb)
+    blk.load(sb, pb, np.full(b, 1e6, np.float32),
+             np.full(b, 2_000_000, np.int32))
+    blk.step()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reps = 5
+    start.record()
+    for _ in range(reps):
+        blk.step()
+    end.record()
+    end.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        blk.step()
+        torch.cuda.synchronize()
+    n = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    K = sim.super_epoch
+    return dict(lanes=b, block_ms=start.elapsed_time(end) / reps,
+                epoch_ms=start.elapsed_time(end) / reps / K,
+                kernels_per_epoch=n / K)
+
+
+def check_dse():
+    """Phase 6: the batched lanes (repro_torch.dse) on the card.  (a) 256
+    points at memsys 16 cores x 96 requests, per-lane horizons, through
+    run_sweep (autotuner and depth-2 pipeline), run_sweep(pipeline=False)
+    and one monolithic run_batch: identical rows, equal to SWEEP_REF, and
+    lanes 0, 85, 170 and 255 equal to single runs, whole states by bits;
+    a block's time and kernels at 1 lane and at the top rung; 4 single
+    runs as the sequential baseline.  (b) the shape.core family, 15 rows,
+    against SWEEP_REF.  (c) 32 lanes at 64 cores x 256 requests, lane 0
+    at the build's defaults equal to MEMSYS64."""
+    import torch
+    from repro_torch import dse
+    from repro_torch.sims import memsys as tm
+
+    card = _card()
+    t_phase = time.perf_counter()
+    rec = {"card": card}
+
+    # (a) sweep-256
+    sim, st = tm.build(n_cores=16, pattern="mixed", n_reqs=96)
+    pts = _dse_points(256)
+    u = _dse_untils(256, MEMSYS_REF["mixed"]["horizon"])
+    spec = dse.SweepSpec.explicit(pts)
+    build_fn = dse.memoize_build(lambda: (sim, st))
+    runner = dse.runner_for(sim)
+    pb = dse.build_param_batch(sim, pts)
+    ladder = dse.make_ladder(len(pts))
+    warm = lambda: runner.warm_ladder(st, pb, ladder)
+    (rows_p, states), rec["rounds"] = _timed_sweep(
+        "sweep-256 run_sweep (autotune, pipelined)", card, runner, warm,
+        lambda: dse.run_sweep(build_fn, spec, until=u, return_states=True))
+    rows_s, rec["rounds_unpipelined"] = _timed_sweep(
+        "sweep-256 run_sweep(pipeline=False)", card, runner, warm,
+        lambda: dse.run_sweep(build_fn, spec, until=u, pipeline=False))
+
+    def mono():
+        out = runner.run_batch(dse.stack_states(st, len(pts)), pb, u)
+        rows = [dict(p, **r) for p, r in zip(
+            pts, dse.extract_rows(sim, out, len(pts)))]
+        return rows, out
+    (rows_m, out_m), rec["monolithic"] = _timed_sweep(
+        "sweep-256 one run_batch", card, runner, warm, mono)
+    if not rows_p == rows_s == rows_m:
+        raise AssertionError("sweep-256: pipelined rounds, unpipelined "
+                             "rounds and run_batch give different rows")
+    _check_rows("sweep-256", rows_m, SWEEP_REF["sweep256"])
+    log(f"sweep-256: the three runs give identical rows, equal to "
+        f"SWEEP_REF ({len(rows_m)} rows)")
+
+    # lanes against single runs, which are also the sequential baseline
+    base = sim.default_params()
+    sim.run(sim.copy_state(st), until=-1.0,
+            params=dse.apply_point(base, pts[0]))      # capture
+    seq_s = 0.0
+    for i in DSE_SAMPLED:
+        p = dse.apply_point(base, pts[i])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one = sim.run(sim.copy_state(st), until=float(u[i]), params=p)
+        torch.cuda.synchronize()
+        seq_s += time.perf_counter() - t
+        for what, lane in (("run_batch", dse.lane(out_m, i)),
+                           ("run_sweep", states.state(i))):
+            bad = _state_diff(lane, one)
+            if bad:
+                raise AssertionError(f"sweep-256 lane {i} ({what}) and a "
+                                     f"single run differ at {bad}")
+    seq_rate = len(DSE_SAMPLED) / seq_s
+    rec["sequential"] = dict(runs=len(DSE_SAMPLED), wall_s=seq_s,
+                             configs_per_s=seq_rate)
+    for k in ("rounds", "rounds_unpipelined", "monolithic"):
+        rec[k]["batching_ratio"] = rec[k]["configs_per_s"] / seq_rate
+    log(f"[{card}] sequential baseline: lanes {DSE_SAMPLED} as single runs "
+        f"in {seq_s:.3f} s ({seq_rate:.3f} configs/s); each equals its "
+        f"lane of run_batch and of run_sweep, whole state, f32 by bits; "
+        f"batching ratio {rec['rounds']['batching_ratio']:.1f}x (pipelined "
+        f"rounds), {rec['rounds_unpipelined']['batching_ratio']:.1f}x "
+        f"(unpipelined), {rec['monolithic']['batching_ratio']:.1f}x "
+        f"(run_batch)")
+    top = rec["rounds"]["chunk"]
+    rec["block"] = [_lane_block_profile(sim, st, pts[:b]) for b in (1, top)]
+    for blk in rec["block"]:
+        log(f"[{card}] one lane-batched block of K={sim.super_epoch} at "
+            f"{blk['lanes']} lanes: {blk['block_ms']:.3f} ms (CUDA events, "
+            f"{blk['epoch_ms']:.4f} ms an epoch), "
+            f"{blk['kernels_per_epoch']:.2f} kernels an epoch")
+
+    # (b) the topology family
+    fam_fn = dse.memoize_build(lambda shape: tm.build_family(
+        shape=shape, pattern="mixed", n_reqs=96))
+    fam_spec = dse.SweepSpec.grid({"shape.core": [1, 2, 4, 8, 16],
+                                   "kind.l1.extra_hit_rate": [0.0, 0.4,
+                                                              0.8]})
+    fam = fam_fn(shape={"core": 16})
+    fam_runner = dse.runner_for(fam.sim)
+    rows_f, rec["family"] = _timed_sweep(
+        "family shape.core x extra_hit_rate", card, fam_runner,
+        lambda: fam_runner.warm_ladder(
+            [fam.state_for()], dse.stack_params([fam.params_for()]),
+            dse.make_ladder(len(fam_spec))),
+        lambda: dse.run_sweep(fam_fn, fam_spec, until=100000.0))
+    _check_rows("family", rows_f, SWEEP_REF["family"])
+    log(f"family: {len(rows_f)} rows equal to SWEEP_REF")
+
+    # (c) 64 cores x 256 requests, 32 lanes
+    ref64 = MEMSYS64
+    sim64, st64 = tm.build(n_cores=ref64["n_cores"], pattern=ref64["pattern"],
+                           n_reqs=ref64["n_reqs"])
+    pts64 = [{"conn_latency[-1]": 30.0}] + [
+        {"conn_latency[-1]": 10.0 + 30.0 * i / 31} for i in range(1, 32)]
+    runner64 = dse.runner_for(sim64)
+    pb64 = dse.build_param_batch(sim64, pts64)
+    rows64, rec["full_width"] = _timed_sweep(
+        "64 cores x 256 requests, 32 lanes", card, runner64,
+        lambda: runner64.warm_ladder(st64, pb64,
+                                     dse.make_ladder(len(pts64))),
+        lambda: dse.run_sweep(dse.memoize_build(lambda: (sim64, st64)),
+                              dse.SweepSpec.explicit(pts64), until=1e6))
+    got = (rows64[0]["epochs"], rows64[0]["virtual_time"])
+    if got != (ref64["epochs"], ref64["virtual_time"]):
+        raise AssertionError(f"64 cores, lane 0 (the build's defaults): "
+                             f"epochs and virtual time {got}, want "
+                             f"MEMSYS64's {ref64['epochs']} and "
+                             f"{ref64['virtual_time']}")
+    log(f"64 cores: lane 0 equals MEMSYS64 ({got[0]} epochs, virtual time "
+        f"{got[1]})")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{card}] phase 6 (dse) took {rec['phase_s']:.1f} s")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 def main():
     try:
         import torch
@@ -1003,10 +1320,13 @@ def main():
     dev = torch.device("cuda", 0)
     if sys.argv[1:] == ["--engine"]:
         # phase 5 alone, after the card line
-        log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                            "--format=csv,noheader"], capture_output=True,
-                           text=True, check=True).stdout.strip())
+        log(_card())
         print(json.dumps({"engine": check_engine()}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--dse"]:
+        # phase 6 alone, after the card line
+        log(_card())
+        print(json.dumps({"dse": check_dse()}), flush=True)
         return 0
     setup()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1017,6 +1337,7 @@ def main():
     _profile(model)
     del model
     engine = check_engine()
+    dse = check_dse()
 
     fa_src = "src/repro/kernels/flash_attention/kernel.py:25"
     ssd_src = "src/repro/kernels/ssd/kernel.py:23"
@@ -1039,6 +1360,7 @@ def main():
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"engine": engine}))
+    print(json.dumps({"dse": dse}))
     print(json.dumps({"kernels": [{k: kr[k] for k in keys}
                                   for kr in kernels]}))
     print(json.dumps({"ok": True, "device": {

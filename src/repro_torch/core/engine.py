@@ -44,6 +44,15 @@ The loop:
   are copied into its static tensors before a replay.  If capture or replay
   fails, ``run`` raises; it never falls back to the eager block.  On the
   CPU the same block runs eagerly.
+* **Lane-batched blocks (DSE).**  ``lane_block`` runs the same block for
+  a batch of independent simulations ("lanes", ``repro.dse``): ``_block``
+  under ``torch.func.vmap`` over a leading lane axis of ``(state, params,
+  until, max_epochs)``, the counterpart of the reference runner's
+  ``jax.vmap`` of ``_run``.  Each lane freezes at its own horizon and
+  budget through the same ``torch.where``, so a lane's result does not
+  depend on K or on its siblings.  On the card the batched block is
+  captured once per ``(lanes, structure)`` as a CUDA graph over static
+  ``[b]``-lane buffers, apart from the single-run graphs.
 * **Segmented port state** — port ring buffers live in per-kind segments
   (``SimState.in_buf`` etc. are dicts keyed by kind name, mirroring
   ``comp_state``), so a kind's tick phase reads and writes *only its own
@@ -114,6 +123,20 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a tree, in ``tree_map``'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(template, leaves):
+    """A tree of ``template``'s structure holding ``leaves`` in
+    ``tree_map``'s order (the inverse of :func:`tree_leaves`)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
+
+
 def _structure(tree):
     """Hashable structure of a tree: keys, shapes and dtypes."""
     if isinstance(tree, torch.Tensor):
@@ -132,6 +155,14 @@ def _structure(tree):
 
 def _from_np(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def host_tensor(a, device) -> torch.Tensor:
+    """A host array as a tensor ready for a copy to ``device``: pinned when
+    that is the card, so that a ``non_blocking`` copy does not wait for the
+    stream (a copy from pageable memory would)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory() if torch.device(device).type == "cuda" else t
 
 
 def _to_device(a, device) -> torch.Tensor:
@@ -270,6 +301,80 @@ class _Graph:
     until: torch.Tensor
     max_epochs: torch.Tensor
     live: torch.Tensor
+
+
+class LaneBlock:
+    """A lane-batched block of K epochs over static ``[b]``-lane buffers.
+
+    ``load`` copies a batch into the buffers, ``step`` advances every lane
+    by one block (on the card a replay of the captured graph, elsewhere
+    the same block run eagerly) and leaves in ``live`` whether each lane
+    still has events before its horizon and its own ``budget``, and in
+    ``more`` whether any lane has not yet stopped at ``max_epochs``.
+    ``step`` writes its result back into ``state``, so steps chain; read
+    the result out with ``sim.copy_state(block.state)``.  Every copy in,
+    step and copy out is enqueued on the current stream in call order, which
+    is what lets two in-flight rounds share one block's buffers.
+    """
+
+    def __init__(self, sim: "Simulation", states_b: SimState,
+                 params_b: SimParams):
+        b = int(params_b.conn_latency.shape[0])
+        dev = sim.device
+        self.sim, self.b = sim, b
+        self.state = sim.copy_state(states_b)
+        self.params = tree_map(torch.clone, params_b)
+        self.until = torch.zeros((b,), dtype=torch.float32, device=dev)
+        self.max_epochs = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.budget = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.live = self.more = None
+        self.graph = None
+        if sim.cuda_graph:
+            self._capture()
+
+    def _body(self, k: int):
+        sim = self.sim
+        out = sim._lane_epochs(self.state, self.params, self.until,
+                               self.max_epochs, k)
+        tree_map(lambda dst, src: dst.copy_(src), self.state, out)
+        live = sim._lane_live(self.state, self.until, self.budget)
+        more = torch.any(sim._lane_live(self.state, self.until,
+                                        self.max_epochs))
+        return live, more
+
+    def _capture(self):
+        sim = self.sim
+        # one eager epoch of every lane on a side stream first, so that
+        # lazy initialisation happens outside the capture; it runs on the
+        # buffers, which ``load`` overwrites before any step
+        side = torch.cuda.Stream(device=sim.device)
+        side.wait_stream(torch.cuda.current_stream(sim.device))
+        with torch.cuda.stream(side), sim._device_ctx():
+            self._body(1)
+        torch.cuda.current_stream(sim.device).wait_stream(side)
+        torch.cuda.synchronize(sim.device)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph), sim._device_ctx():
+            self.live, self.more = self._body(sim.super_epoch)
+
+    def load(self, states_b: SimState, params_b: SimParams, until,
+             max_epochs, budget=None) -> None:
+        """Copy a batch and its per-lane ``[b]`` horizons (host arrays)
+        into the buffers; ``budget`` defaults to ``max_epochs``."""
+        copy = lambda dst, src: dst.copy_(src)
+        tree_map(copy, self.state, states_b)
+        tree_map(copy, self.params, params_b)
+        budget = max_epochs if budget is None else budget
+        for dst, a in ((self.until, until), (self.max_epochs, max_epochs),
+                       (self.budget, budget)):
+            dst.copy_(host_tensor(a, self.sim.device), non_blocking=True)
+
+    def step(self) -> None:
+        if self.graph is not None:
+            self.graph.replay()
+            return
+        with self.sim._device_ctx():
+            self.live, self.more = self._body(self.sim.super_epoch)
 
 
 class SimBuilder:
@@ -454,6 +559,7 @@ class Simulation:
         self._build_kind_consts()
         self._dp = self.default_params()
         self._graphs: dict[Any, _Graph] = {}
+        self._lane_blocks: dict[Any, LaneBlock] = {}
         # the captured block of the last run on the card, for profiling:
         # ``last_graph.graph.replay()`` advances its static state one block
         self.last_graph: _Graph | None = None
@@ -541,6 +647,7 @@ class Simulation:
         self.c["peer"] = _from_np(peer, self.device)
         self._build_kind_consts()
         self._graphs.clear()
+        self._lane_blocks.clear()
         self.last_graph = None
 
     # ------------------------------------------------------------------
@@ -945,6 +1052,42 @@ class Simulation:
             s = tree_map(lambda new, old: torch.where(live, new, old),
                          self._epoch(s, P, D), s)
         return s
+
+    def _lane_epochs(self, s: SimState, P: SimParams, until, max_epochs,
+                     k: int) -> SimState:
+        """``_block`` of every lane: ``torch.func.vmap`` over the leading
+        lane axis of ``(s, P, until, max_epochs)``.  The state and params
+        dataclasses enter and leave vmap as their leaves.  ``_tick_kinds``
+        vmaps again over instances inside, so the kind params it closes
+        over are per lane."""
+        def one(s_l, p_l, u, m):
+            out = self._block(tree_unflatten(s, s_l), tree_unflatten(P, p_l),
+                              u, m, k)
+            return tree_leaves(out)
+
+        leaves = torch.func.vmap(one)(tree_leaves(s), tree_leaves(P), until,
+                                      max_epochs)
+        return tree_unflatten(s, leaves)
+
+    def _lane_live(self, s: SimState, until, max_epochs):
+        """``_live`` of every lane: ``[b]`` bool."""
+        return torch.func.vmap(
+            lambda s_l, u, m: self._live(tree_unflatten(s, s_l), u, m))(
+                tree_leaves(s), until, max_epochs)
+
+    def lane_block(self, states_b: SimState,
+                   params_b: SimParams) -> tuple[LaneBlock, bool]:
+        """The :class:`LaneBlock` for this batch's lane count and structure
+        (keys, shapes, dtypes of the batch and its params), and whether it
+        was made by this call: captured on first use on the card, run
+        eagerly elsewhere.  Capture failures raise: there is no eager
+        fallback on the card."""
+        key = (_structure(states_b), _structure(params_b))
+        blk = self._lane_blocks.get(key)
+        if blk is not None:
+            return blk, False
+        blk = self._lane_blocks[key] = LaneBlock(self, states_b, params_b)
+        return blk, True
 
     def _device_ctx(self):
         # tick functions make their constants with factory calls; on the

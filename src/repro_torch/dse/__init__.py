@@ -1,6 +1,42 @@
-"""Design-space exploration on the engine.  Counterpart of ``repro.dse``;
-so far only :class:`TopologyFamily`, the contract of family-aware builders
-such as ``repro_torch.sims.memsys.build_family``."""
-from .family import TopologyFamily
+"""repro_torch.dse — batched design-space exploration over the engine.
+Counterpart of ``repro.dse``:
 
-__all__ = ["TopologyFamily"]
+  * :mod:`~repro_torch.dse.sweep`    — ``SweepSpec`` (grid / random /
+    explicit design points; traced, ``static.*`` and ``shape.*`` axes;
+    eager path validation) and param-batch stacking;
+  * :mod:`~repro_torch.dse.family`   — ``TopologyFamily``: one padded
+    maximum-shape build whose sub-shapes are selected by activity masks;
+  * :mod:`~repro_torch.dse.runner`   — ``BatchRunner`` / ``run_sweep``:
+    lane-batched blocks of the engine (a captured CUDA graph per ladder
+    rung on the card) with per-lane horizons, rounds with lane
+    compaction and the depth-2 pipeline;
+  * :mod:`~repro_torch.dse.schedule` — the chunk ladder, epoch-quantum
+    policy and the one-shot chunk-size autotuner behind ``run_rounds``;
+  * :mod:`~repro_torch.dse.report`   — tidy rows, ``dominates`` /
+    Pareto-front extraction and JSON/CSV export.
+
+Not ported yet: ``mux``, ``search`` and ``cache``, and lanes sharded over
+several cards (``shard=`` above 1).
+"""
+from .family import TopologyFamily
+from .report import (dominates, format_table, pareto_front, score_vector,
+                     tidy, to_csv, to_json)
+from .runner import (BatchRunner, LaneStates, ResumeHandle,
+                     default_extract, extract_rows, lane,
+                     memoize_build, run_sweep, runner_for,
+                     stack_state_list, stack_states)
+from .schedule import ChunkAutotuner, ChunkSchedule, auto_schedule, \
+    make_ladder
+from .sweep import (SweepSpec, apply_point, axis_error, build_param_batch,
+                    split_shape, stack_params, valid_axes)
+
+__all__ = [
+    "SweepSpec", "apply_point", "axis_error", "valid_axes",
+    "build_param_batch", "stack_params", "split_shape", "TopologyFamily",
+    "BatchRunner", "run_sweep", "stack_states", "stack_state_list", "lane",
+    "default_extract", "extract_rows", "runner_for", "memoize_build",
+    "ResumeHandle", "LaneStates",
+    "ChunkSchedule", "ChunkAutotuner", "auto_schedule", "make_ladder",
+    "pareto_front", "dominates", "score_vector", "tidy", "to_csv",
+    "to_json", "format_table",
+]

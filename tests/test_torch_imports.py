@@ -26,6 +26,9 @@ def test_importing_every_module_loads_no_jax_or_repro():
     assert "repro_torch.serve.engine" in mods
     assert "repro_torch.core.engine" in mods
     assert "repro_torch.sims.memsys" in mods
+    for m in ("dse.runner", "dse.sweep", "dse.schedule", "dse.report",
+              "obs.bus"):
+        assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
