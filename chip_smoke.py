@@ -49,10 +49,36 @@ Phases (each raises on failure, and the run then exits non-zero):
      rung, and the batching ratio against 4 single runs.  No hand-written
      kernel either: the reference's batched loop is ``jax.vmap`` of the
      same jnp code.
-Then the engine's and the DSE path's JSON records, the kernels' JSON
-record (the line before the last), and ``{"ok": true, "device": {...}}``
-as the last line.  ``python3 chip_smoke.py --engine`` runs phase 5 alone,
-``python3 chip_smoke.py --dse`` phase 6.  Imports nothing of JAX.
+  7. models: the rest of the model path (MoE, MLA, the dense layer 0, the
+     audio and vision frontends, ring-buffer decode) at full width.  (a)
+     flash at head dim 80 (hubert-xlarge's prefill, and a causal case with
+     window and softcap), with kernel, plain and SDPA times, and at the
+     prefill shape of every full-width arch that launches it (S=384 with
+     its heads, key groups, windows and softcap: gemma2, grok-1,
+     deepseek-67b, phi3-medium, internvl2), both kernels against the
+     plain version; (b) one MoE layer at deepseek-v2's
+     widths (160 experts, top-6, 2 shared), f32, 256 tokens on the group
+     path, against the dense oracle; (c) one MLA layer at its widths, f32,
+     absorbed decode against the materialised form; (d) each new arch's
+     smoke config in f32, card against CPU (phi3-medium's head dim 12 is
+     not one the kernel takes: skipped, the full width covers it); (e)
+     the main path: deepseek-v2-236b at full width, 6 of 60 layers (42.5
+     GB bf16), served by ``ServeEngine`` like hymba in phase 3, with no
+     flash launch (MLA attends in plain PyTorch) and a profiler split by
+     group; (f) gemma2-27b whole (46 layers, 38.8 GB), served the same
+     way, 46 flash launches a prefill, softcap 50 in each; (g) one prefill
+     of grok-1 (2 layers), deepseek-67b, phi3-medium and internvl2 (4
+     each; internvl2 with 256 vision tokens and then 4 decode steps) and
+     hubert-xlarge whole (48 layers, 2 clips of 500 frames), flash launches
+     = attention layers; (h) hymba-1.5b at full width, 4 layers, f32:
+     1100 teacher-forced positions of ring-buffer decode against the
+     uniform decode, within 1e-4 of max |logits| at every step.
+Then the engine's, the DSE path's and the models' JSON records, the
+kernels' JSON record (the line before the last; the flash records'
+launches add phase 7's model runs to phase 3's), and ``{"ok": true,
+"device": {...}}`` as the last line.  ``python3 chip_smoke.py --engine``
+runs phase 5 alone, ``--dse`` phase 6, ``--models`` phases 1 and 7.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -101,6 +127,28 @@ SSD_EDGE = [
 MAMBA2_SSD = (1, 512, 24, 64, 128, 256)
 PROMPT_LENS = (256, 200, 384, 130, 64)
 MAX_NEW = 32
+
+# phase 7: the rest of the model path, at full width.  Flash at head dim
+# 80: hubert-xlarge's prefill (2 clips of 500 frames, 16 heads, no mask),
+# and a causal case with a window and softcap
+FA80_CASES = [  # B, S, H, KV, hd, causal, window, cap
+    (2, 500, 16, 16, 80, False, 0, 0.0),
+    (1, 700, 8, 2, 80, True, 256, 30.0),
+]
+# (a) also holds both kernels at each arch's full-width prefill shape:
+# B=1, S=384 (the longest prompt phase 7 serves), one case per window
+FA_ARCHS = ("gemma2-27b", "grok-1-314b", "deepseek-67b", "phi3-medium-14b",
+            "internvl2-26b")
+FA_ARCH_S = 384
+MODELS_SMOKE = ("deepseek-67b", "gemma2-27b", "phi3-medium-14b",
+                "hubert-xlarge", "deepseek-v2-236b", "grok-1-314b",
+                "internvl2-26b")
+MAIN_LAYERS = 6   # deepseek-v2-236b: layer 0 dense + 5 MoE, 42.5 GB bf16
+# (arch, layers or None for all): one prefill each at full width
+PREFILL_ONLY = (("grok-1-314b", 2), ("deepseek-67b", 4),
+                ("phi3-medium-14b", 4), ("internvl2-26b", 4),
+                ("hubert-xlarge", None))
+RING = dict(arch="hymba-1.5b", layers=4, positions=1100, cache=1152)
 
 # phase 5: memsys at 16 cores and 96 requests a core, by the procedure of
 # benchmarks/smart_ticking.py (Smart Ticking to completion, horizon =
@@ -326,6 +374,13 @@ def setup():
 # ---------------------------------------------------------------------------
 # phase 2
 # ---------------------------------------------------------------------------
+def _qkv(gen, dev, B, S, H, KV, hd, dtype):
+    """Random q [B,S,H,hd] and k, v [B,S,KV,hd] in ``dtype``."""
+    import torch
+    return tuple(torch.randn((B, S, h, hd), generator=gen, device=dev)
+                 .to(dtype) for h in (H, KV, KV))
+
+
 def _attn_pairs(S, causal, window):
     """(q, k) pairs the masks keep at self-attention positions."""
     if not causal:
@@ -344,12 +399,6 @@ def check_flash(dev, gen):
     from repro_torch.kernels.flash_attention import kernel as fak
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    def mk(B, S, H, KV, hd, dtype):
-        q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dtype)
-        k = torch.randn((B, S, KV, hd), generator=gen, device=dev).to(dtype)
-        v = torch.randn((B, S, KV, hd), generator=gen, device=dev).to(dtype)
-        return q, k, v
-
     # hymba-1.5b prefill: 25 query heads, 5 KV heads of 64
     hymba = [(1, S, 25, 5, 64, True, w, 0.0)
              for S in (256, 200) for w in (0, 1024)]
@@ -361,7 +410,7 @@ def check_flash(dev, gen):
             B, S, H, KV, hd, causal, window, cap = case
             for dtype in (torch.bfloat16, torch.float32):
                 dn = str(dtype).split(".")[1]
-                q, k, v = mk(B, S, H, KV, hd, dtype)
+                q, k, v = _qkv(gen, dev, B, S, H, KV, hd, dtype)
                 kw = dict(causal=causal, window=window, cap=cap)
                 out = fak.flash_attention(q, k, v, **kw)
                 torch.cuda.synchronize()
@@ -652,68 +701,107 @@ def check_small_model(dev):
     return launches
 
 
-def serve_hymba(dev):
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _init_model(cfg, dev, dtype, note=""):
+    """Seeded random weights on the card, timed; logs the model's size."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    t = time.perf_counter()
+    model = tfm.init_model(cfg, seed=0, device=dev, dtype=dtype)
+    _sync(dev)
+    n = sum(p.numel() for p in model.parameters())
+    log(f"{cfg.name}: {cfg.n_layers} layers{note}, d_model {cfg.d_model}, "
+        f"{n} params ({n * torch.finfo(dtype).bits / 8e9:.1f} GB "
+        f"{str(dtype).split('.')[1]}, seeded random) on the card in "
+        f"{time.perf_counter() - t:.2f} s")
+    return model, n
+
+
+def _serve(cfg, model, label):
+    """``ServeEngine(max_batch=4, max_len=512)``: PROMPT_LENS prompts, MAX_NEW
+    tokens each; every real logit finite.  Returns host times, tokens/s,
+    peak memory, both kernels' launches (flash's also by dtype), and each
+    flash launch's softcap."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fak
     from repro_torch.kernels.ssd import kernel as ssdk
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.engine import ServeEngine
-
-    cfg = get_config("hymba-1.5b")
-    t = time.perf_counter()
-    model = tfm.init_model(cfg, seed=0, device=dev, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"hymba-1.5b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{n_params} params (bf16, seeded random) on the card in "
-        f"{time.perf_counter() - t:.2f} s")
 
     eng = ServeEngine(cfg, model, max_batch=4, max_len=512)
     timer = eng.dom.attach(_Timer())
     rng = np.random.default_rng(0)
     counter = {"calls": 0, "nonfinite": 0}
     orig, checked = _finite_forward(tfm, counter)
-    tfm.forward = checked
+    caps, orig_fa = [], fak.flash_attention
+
+    def capped(*a, **kw):
+        caps.append(kw.get("cap", 0.0))
+        return orig_fa(*a, **kw)
+    tfm.forward, fak.flash_attention = checked, capped
     try:
         for n in PROMPT_LENS:
             eng.submit(rng.integers(0, cfg.vocab, n), max_new=MAX_NEW)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fak.launches = 0
+        _zero_flash_counts()
         ssdk.launches = 0
         t = time.perf_counter()
         done = eng.run_until_idle()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = {"flash_attention": fak.launches, "ssd": ssdk.launches}
+        flash_by_dtype = dict(fak.launches_by_dtype)
     finally:
-        tfm.forward = orig
-
+        tfm.forward, fak.flash_attention = orig, orig_fa
     if len(done) != len(PROMPT_LENS) or \
             any(len(r.out) != MAX_NEW for r in done):
-        raise AssertionError(f"requests did not all finish with {MAX_NEW} "
-                             f"tokens: {[len(r.out) for r in done]}")
+        raise AssertionError(f"{label}: requests did not all finish with "
+                             f"{MAX_NEW} tokens: {[len(r.out) for r in done]}")
     if counter["nonfinite"]:
-        raise AssertionError(f"{counter['nonfinite']} of {counter['calls']}"
-                             f" forward calls gave non-finite logits")
-    n_prefill = len(timer.spans["prefill"])
-    want = cfg.n_layers * n_prefill
-    for name, n in launches.items():
-        if n != want:
-            raise AssertionError(f"{name}: {n} launches in the serve run, "
-                                 f"want {cfg.n_layers} x {n_prefill}")
+        raise AssertionError(f"{label}: {counter['nonfinite']} of "
+                             f"{counter['calls']} forward calls gave "
+                             f"non-finite logits")
     pre, dec = timer.spans["prefill"], timer.spans["decode"]
     toks = sum(len(r.out) for r in done)
-    log(f"served {len(done)} requests x {MAX_NEW} tokens in {wall:.3f} s: "
-        f"{toks / wall:.2f} tokens/s; {counter['calls']} forward calls, "
-        f"all logits finite; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log("prefill ms per request (prompt lens "
-        f"{list(PROMPT_LENS)}): {[round(x, 3) for x in pre]}")
-    log(f"decode ms per step: mean {sum(dec) / len(dec):.3f}, "
-        f"min {min(dec):.3f}, max {max(dec):.3f} over {len(dec)} steps")
+    rec = dict(prefill_ms=pre, decode_ms_mean=sum(dec) / len(dec),
+               decode_ms_min=min(dec), decode_ms_max=max(dec),
+               decode_steps=len(dec), tokens=toks, wall_s=wall,
+               tokens_per_s=toks / wall, launches=launches,
+               flash_by_dtype=flash_by_dtype, n_prefill=len(pre),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"{label}: served {len(done)} requests x {MAX_NEW} tokens in "
+        f"{wall:.3f} s: {toks / wall:.2f} tokens/s; {counter['calls']} "
+        f"forward calls, all logits finite; peak device memory "
+        f"{rec['peak_gib']:.2f} GiB; prefill ms (prompt lens "
+        f"{list(PROMPT_LENS)}): {[round(x, 3) for x in pre]}; decode ms a "
+        f"step: mean {rec['decode_ms_mean']:.3f}, min {min(dec):.3f}, max "
+        f"{max(dec):.3f} over {len(dec)} steps; launches {launches}")
+    return rec, caps
+
+
+def serve_hymba(dev):
+    """hymba-1.5b at full width and depth, bf16, served: both kernels
+    launch once per layer of every prefill."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.ssd import kernel as ssdk
+
+    cfg = get_config("hymba-1.5b")
+    model, _ = _init_model(cfg, dev, torch.bfloat16)
+    rec, _ = _serve(cfg, model, "hymba-1.5b serve")
+    launches, n_prefill = rec["launches"], rec["n_prefill"]
+    for name, n in launches.items():
+        if n != cfg.n_layers * n_prefill:
+            raise AssertionError(f"{name}: {n} launches in the serve run, "
+                                 f"want {cfg.n_layers} x {n_prefill}")
     log(f"launches in the serve run: {launches} "
         f"(= {cfg.n_layers} layers x {n_prefill} prefills), through "
         f"{fak.entry(torch.bfloat16)[1]} and {ssdk.entry(torch.bfloat16)[1]}")
@@ -734,38 +822,51 @@ def _kernel_group(name):
     return "other"
 
 
-def _profile(model):
-    """Device busy share and kernel time by group, for one prefill and for
-    decode steps with every slot active.  Wall times come from an
-    unprofiled run of the same work; device times from torch.profiler's
-    kernel events (one stream, so their sum is the busy time)."""
-    import numpy as np
-    import torch
+def _profiled(fn, dev, labels=()):
+    """Run ``fn`` once unprofiled and once under torch.profiler.  Returns
+    the profile, its kernel (and copy) events, the device-busy time (the
+    union of their intervals: the SSD kernels overlap by programmatic
+    dependent launch), and both host walls in us.  The ``labels``' own
+    spans on the device timeline (record_function annotations) are not
+    kernels and are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    _sync(dev)
+    t = time.perf_counter()
+    fn()
+    _sync(dev)
+    wall = (time.perf_counter() - t) * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        _sync(dev)
+        wall_prof = (time.perf_counter() - t) * 1e6
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in labels]
+    busy, end = 0.0, float("-inf")
+    for e in sorted(kern, key=lambda e: e.time_range.start):
+        lo, hi = max(e.time_range.start, end), e.time_range.end
+        busy += max(0.0, hi - lo)
+        end = max(end, hi)
+    return prof, kern, busy, wall, wall_prof
+
+
+def _profile(model):
+    """Device busy share and kernel time by group, for one prefill and for
+    decode steps with every slot active (torch.profiler's kernel events;
+    the busy share is of the profiled run's wall, the unprofiled wall is
+    printed beside it)."""
+    import numpy as np
+    import torch
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.engine import ServeEngine
 
     cfg, rng = model.cfg, np.random.default_rng(1)
 
     def run(label, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e6
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        # busy time is the union of the kernels' intervals: the SSD
-        # kernels overlap (programmatic dependent launch)
-        busy, end = 0.0, float("-inf")
-        for e in sorted(kern, key=lambda e: e.time_range.start):
-            lo, hi = max(e.time_range.start, end), e.time_range.end
-            busy += max(0.0, hi - lo)
-            end = max(end, hi)
+        prof, kern, busy, wall, wall_prof = _profiled(fn, model.device)
         groups: dict[str, float] = {}
         for e in kern:
             g = _kernel_group(e.name)
@@ -775,9 +876,10 @@ def _profile(model):
             name = next((n for n in OWN_KERNELS if n in e.name), None)
             if name:
                 own.setdefault(name, []).append(e.time_range.elapsed_us())
-        log(f"profile {label}: wall {wall:.0f} us unprofiled, device busy "
-            f"{busy:.0f} us ({100 * busy / wall:.1f}%), {len(kern)} kernels;"
-            " device us by group: "
+        log(f"profile {label}: wall {wall:.0f} us unprofiled, "
+            f"{wall_prof:.0f} us profiled; device busy {busy:.0f} us "
+            f"({100 * busy / wall_prof:.1f}% of the profiled wall), "
+            f"{len(kern)} kernels; device us by group: "
             + ", ".join(f"{g} {u:.0f}" for g, u in
                         sorted(groups.items(), key=lambda kv: -kv[1]))
             + "; own kernels, us per launch: "
@@ -1301,6 +1403,595 @@ def check_dse():
 
 
 # ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+def _zero_flash_counts():
+    """Set the flash kernel module's launch counts, total and by dtype,
+    to 0."""
+    from repro_torch.kernels.flash_attention import kernel as fak
+    fak.launches = 0
+    for dn in fak.launches_by_dtype:
+        fak.launches_by_dtype[dn] = 0
+
+
+def _free(dev):
+    import gc
+
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _arch_flash_cases():
+    """(arch, case) for each full-width arch of FA_ARCHS: its prefill
+    attention at B=1, S=FA_ARCH_S, once for each window its layers use."""
+    from repro_torch.configs import get_config
+    out = []
+    for arch in FA_ARCHS:
+        cfg = get_config(arch)
+        for w in sorted(set(cfg.layer_windows())):
+            out.append((arch, (1, FA_ARCH_S, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, cfg.causal, w,
+                               cfg.attn_softcap)))
+    return out
+
+
+def check_flash80(dev, gen):
+    """(a) Both kernels against the plain version at head dim 80 and at
+    each full-width arch's prefill shape; at hubert's prefill shape,
+    kernel, plain and SDPA times.  Returns each dtype's record at
+    hubert's shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    rec = {}
+    cases = [("hd80", c) for c in FA80_CASES] + _arch_flash_cases()
+    for tag, case in cases:
+        B, S, H, KV, hd, causal, window, cap = case
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            q, k, v = _qkv(gen, dev, B, S, H, KV, hd, dtype)
+            kw = dict(causal=causal, window=window, cap=cap)
+            out = fak.flash_attention(q, k, v, **kw)
+            _sync(dev)
+            e = compare("flash_attention", out,
+                        flash_attention_ref(q, k, v, **kw), dn)
+            line = (f"flash_attention {fak.entry(dtype)[1]} {tag} B={B} "
+                    f"S={S} H={H} KV={KV} hd={hd} causal={causal} "
+                    f"window={window} cap={cap} {dn}: max_abs_err {e:.3g}")
+            if tag == "hd80" and not causal:               # hubert's prefill
+                ms = time_ms(lambda: fak.flash_attention(q, k, v, **kw))
+                plain = time_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                                reps=5)
+                qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh))
+                ops = 4 * B * H * hd * _attn_pairs(S, causal, window)
+                b_ms, b_by = bound(nbytes(q, k, v, out), ops, dn)
+                rec[dn] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=b_ms, bound_by=b_by, max_abs_err=e)
+                line += (f", kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
+                         f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share "
+                         f"of bound {b_ms / ms:.3f}")
+            log(line)
+    return rec
+
+
+def check_moe_full(dev, gen):
+    """(b) One MoE layer at deepseek-v2's full widths, f32, ample capacity,
+    256 tokens (so moe_groups=32 takes the group path): moe_block against
+    the dense oracle at the reference test's bar."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import init_params
+
+    cfg = get_config("deepseek-v2-236b", moe_capacity=8.0)
+    T = 256
+    G, Tg, C = moe.capacity_of(cfg, T)
+    if G != cfg.moe_groups:
+        raise AssertionError(f"MoE: {T} tokens took {G} groups, want "
+                             f"{cfg.moe_groups}")
+    params = init_params(moe.moe_specs(cfg), gen, torch.float32)
+    x = torch.randn((1, T, cfg.d_model), generator=gen, device=dev) * 0.5
+    out, aux = moe.moe_block(params, cfg, x)
+    ref = moe.moe_block_dense_ref(params, cfg, x)
+    _sync(dev)
+    err = float((out - ref).abs().max())
+    if not (torch.isfinite(out).all() and
+            torch.allclose(out, ref, atol=2e-4, rtol=2e-3)):
+        raise AssertionError(f"MoE full width: moe_block vs dense oracle "
+                             f"max abs err {err} (atol 2e-4, rtol 2e-3)")
+    ms = eager_ms(lambda: moe.moe_block(params, cfg, x), reps=3)
+    log(f"MoE deepseek-v2 full width (E={cfg.n_experts}, top-{cfg.top_k}, "
+        f"{cfg.n_shared_experts} shared, d={cfg.d_model}, "
+        f"ff={cfg.expert_d_ff}) f32, T={T}: groups {G} x {Tg} tokens, "
+        f"{C} slots an expert a group; moe_block vs dense oracle max abs "
+        f"err {err:.3g} (|ref| max {float(ref.abs().max()):.3g}; atol 2e-4, "
+        f"rtol 2e-3), aux {float(aux):.4f}; moe_block {ms:.3f} ms eager")
+    del params
+    _free(dev)
+    return dict(max_abs_err=err, ms=ms)
+
+
+def check_mla_full(dev, gen):
+    """(c) One MLA layer at deepseek-v2's full widths, f32: absorbed decode
+    token by token against the materialised form, by the procedure of
+    test_mla_absorbed_decode_matches_materialized."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import mla
+    from repro_torch.models.layers import init_params
+
+    cfg = get_config("deepseek-v2-236b")
+    params = init_params(mla.mla_specs(cfg), gen, torch.float32)
+    B, S = 2, 16
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev) * 0.5
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    full, _ = mla.mla_block(params, cfg, x, pos)
+    cache = (torch.zeros((B, S, cfg.kv_lora), device=dev),
+             torch.zeros((B, S, cfg.qk_rope_dim), device=dev))
+    outs = []
+    for t in range(S):
+        pt = torch.full((B, 1), t, dtype=torch.int32, device=dev)
+        o, cache = mla.mla_block(params, cfg, x[:, t:t + 1], pt, cache=cache,
+                                 cache_len=pt + 1)
+        outs.append(o)
+    dec = torch.cat(outs, dim=1)
+    _sync(dev)
+    err = float((dec - full).abs().max())
+    if not torch.allclose(dec, full, atol=3e-4, rtol=3e-3):
+        raise AssertionError(f"MLA full width: absorbed decode vs "
+                             f"materialised max abs err {err} (atol 3e-4, "
+                             f"rtol 3e-3)")
+    log(f"MLA deepseek-v2 full width (H={cfg.n_heads}, kv_lora "
+        f"{cfg.kv_lora}, q_lora {cfg.q_lora}, rope {cfg.qk_rope_dim}) f32, "
+        f"B={B} S={S}: absorbed decode vs materialised max abs err "
+        f"{err:.3g} (|ref| max {float(full.abs().max()):.3g}; atol 3e-4, "
+        f"rtol 3e-3)")
+    del params
+    _free(dev)
+    return dict(max_abs_err=err)
+
+
+def _smoke_batch(cfg, rng, B, S):
+    """Numpy inputs of a smoke run: tokens, or frames, or vision + text."""
+    import numpy as np
+    if cfg.frontend == "audio":
+        return {"features": rng.standard_normal((B, S, cfg.frontend_dim),
+                                                dtype=np.float32),
+                "mask": (rng.random((B, S)) < 0.3).astype(np.float32)}
+    if cfg.frontend == "vision":
+        nv = cfg.n_vision_tokens
+        return {"tokens": rng.integers(0, cfg.vocab, (B, S - nv)),
+                "vision": rng.standard_normal((B, nv, cfg.d_model),
+                                              dtype=np.float32)}
+    return {"tokens": rng.integers(0, cfg.vocab, (B, S))}
+
+
+def _greedy(model, cfg, batch, new):
+    """Prefill logits, then ``new`` greedy decode steps (uniform cache, or
+    teacher-forced ``decode_unrolled`` where the caches are mixed), on the
+    model's device.  -> (prefill logits, [step logits], [step tokens])."""
+    import torch
+    from repro_torch.models import transformer as tfm
+
+    dev = model.device
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    with torch.inference_mode():
+        lp, pc, _ = tfm.forward(model, cfg, b, mode="prefill")
+    if not cfg.causal:
+        return lp.cpu(), [], []
+    B, S0 = lp.shape[:2]
+    S_max = S0 + new
+    steps, toks = [], []
+    with torch.inference_mode():
+        if tfm.needs_unrolled_decode(cfg, S_max):
+            cache = tfm.init_cache_unrolled(cfg, B, S_max,
+                                            dtype=torch.float32, device=dev)
+            for t in range(S_max - 1):
+                tok = b["tokens"][:, t:t + 1] if t < S0 else nxt[:, None]
+                pos = torch.full((B, 1), t, dtype=torch.int32, device=dev)
+                lg, cache = tfm.decode_unrolled(model, cfg, tok, cache, pos)
+                nxt = lg[:, -1].argmax(-1)
+                if t >= S0 - 1:
+                    steps.append(lg.cpu())
+                    toks.append(nxt.cpu())
+        else:
+            cache = tfm.init_cache(cfg, B, S_max, dtype=torch.float32,
+                                   device=dev)
+            for k, v in pc.items():
+                if k in tfm.IN_PLACE:
+                    cache[k][:, :, :S0] = v
+                else:
+                    cache[k] = v.to(cache[k].dtype)
+            nxt = lp[:, -1].argmax(-1)
+            for t in range(S0, S_max):
+                toks.append(nxt.cpu())
+                pos = torch.full((B, 1), t, dtype=torch.int32, device=dev)
+                lg, cache, _ = tfm.forward(
+                    model, cfg, {"tokens": nxt[:, None]}, mode="decode",
+                    cache=cache, positions=pos, cache_len=pos + 1)
+                nxt = lg[:, -1].argmax(-1)
+                steps.append(lg.cpu())
+    return lp.cpu(), steps, toks
+
+
+def _router_gaps(model, cfg, batch, new):
+    """The smallest gap between a token's k-th and (k+1)-th router
+    probability, over every MoE call of a CPU run."""
+    from repro_torch.models import moe
+    gaps, orig = [], moe._route
+
+    def spy(params, xf, K):
+        probs, gates, eidx = orig(params, xf, K)
+        top = probs.sort(dim=-1, descending=True).values
+        gaps.append(float((top[:, K - 1] - top[:, K]).min()))
+        return probs, gates, eidx
+    moe._route = spy
+    try:
+        _greedy(model, cfg, batch, new)
+    finally:
+        moe._route = orig
+    return min(gaps)
+
+
+def check_smoke_models(dev):
+    """(d) Each new arch's smoke config in f32 on the card (kernels) against
+    the CPU (plain versions): prefill logits and every decode step's within
+    1e-4 of their largest magnitude (hubert: 2e-2 in norm, its frontend is
+    bf16), and equal greedy tokens.  Returns the flash launches by dtype,
+    as the kernel module counts them."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.models import transformer as tfm
+
+    _zero_flash_counts()
+    for arch in MODELS_SMOKE:
+        cfg = get_smoke_config(arch)
+        if cfg.head_dim not in fak.HEAD_DIMS:
+            log(f"smoke {cfg.name}: skipped, head_dim {cfg.head_dim} is "
+                f"not a head dim the kernel takes {fak.HEAD_DIMS}; the "
+                f"full-width {arch} (head_dim {get_config(arch).head_dim}) "
+                f"runs in (g)")
+            continue
+        cpu = tfm.init_model(cfg, seed=2, device="cpu",
+                             dtype=torch.float32)
+        gpu = copy.deepcopy(cpu).to(dev)
+        batch = _smoke_batch(cfg, np.random.default_rng(2), 2, 12)
+        new = 4
+        ref, got = _greedy(cpu, cfg, batch, new), \
+            _greedy(gpu, cfg, batch, new)
+        audio = cfg.frontend == "audio"
+        worst = 0.0
+        for i, (a, b) in enumerate(zip([got[0]] + got[1],
+                                       [ref[0]] + ref[1])):
+            a, b = a[..., :cfg.vocab], b[..., :cfg.vocab]
+            if audio:
+                r = float((a - b).norm() / b.norm())
+                ok = r <= 2e-2
+            else:
+                r = float((a - b).abs().max() / b.abs().max())
+                ok = r <= 1e-4
+            worst = max(worst, r)
+            if not ok:
+                raise AssertionError(f"smoke {cfg.name}: card vs CPU "
+                                     f"logits at step {i} differ by "
+                                     f"{r:.3g} of their scale")
+        for t, (a, b) in enumerate(zip(got[2], ref[2])):
+            if not torch.equal(a, b):
+                gap = ""
+                if cfg.n_experts:
+                    gap = (f"; router top-k gap (CPU run) "
+                           f"{_router_gaps(cpu, cfg, batch, new):.3g}")
+                lg = ref[1][t][:, -1, :cfg.vocab]
+                top2 = lg.topk(2, dim=-1).values
+                raise AssertionError(
+                    f"smoke {cfg.name}: greedy token differs at step "
+                    f"{t}: card {a.tolist()}, CPU {b.tolist()}; top-2 "
+                    f"logit gap {(top2[:, 0] - top2[:, 1]).tolist()}"
+                    f"{gap}")
+        log(f"smoke {cfg.name} f32: card vs CPU, prefill and {len(got[1])}"
+            f" decode steps, worst logit error {worst:.3g} of scale "
+            f"({'2e-2 in norm' if audio else '1e-4 of max'}); "
+            f"{sum(len(t) for t in got[2])} greedy tokens equal")
+        del cpu, gpu
+    launches = dict(fak.launches_by_dtype)
+    log(f"flash launches in (d): {launches}")
+    return launches
+
+
+def _profile_groups(model, cfg, dev):
+    """torch.profiler split of one prefill (S=256) and one decode step with
+    4 active slots: matmul kernels, MoE dispatch (every other kernel of
+    ``moe_block``: routing, slot count, scatter, gather, combine, SwiGLU's
+    elementwise work), attention (every kernel of ``blockwise_attention``
+    and ``absorbed_attention``), other; and the device-busy share of the
+    profiled run (the profiler slows the host, so the unprofiled wall is
+    printed beside it)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+    from repro_torch.models import mla, moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import ServeEngine
+
+    def labelled(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+    saved = (mla.blockwise_attention, mla.absorbed_attention, moe.moe_block)
+    mla.blockwise_attention = labelled("attention", saved[0])
+    mla.absorbed_attention = labelled("attention", saved[1])
+    moe.moe_block = labelled("moe", saved[2])
+
+    def run(label, fn):
+        prof, kern, busy, wall, wall_prof = _profiled(
+            fn, dev, labels=("attention", "moe"))
+        total = sum(e.time_range.elapsed_us() for e in kern)
+        groups = {"matmul": 0.0, "moe dispatch": 0.0, "attention": 0.0}
+
+        def walk(e, where):
+            if e.name in ("attention", "moe"):
+                where = e.name
+            for k in e.kernels:
+                g = _kernel_group(k.name)
+                if where == "attention":
+                    groups["attention"] += k.duration
+                elif g == "matmul":
+                    groups["matmul"] += k.duration
+                elif where == "moe":
+                    groups["moe dispatch"] += k.duration
+            for c in e.cpu_children:
+                walk(c, where)
+        for e in prof.events():
+            if e.device_type == DeviceType.CPU and e.cpu_parent is None:
+                walk(e, None)
+        groups["other"] = total - sum(groups.values())
+        log(f"profile {cfg.name} {label}: wall {wall:.0f} us unprofiled, "
+            f"{wall_prof:.0f} us profiled; device busy {busy:.0f} us "
+            f"({100 * busy / wall_prof:.1f}% of the profiled wall), "
+            f"{len(kern)} kernels; device us by group: "
+            + ", ".join(f"{g} {u:.0f}" for g, u in groups.items()))
+        return dict(wall_us=wall, wall_profiled_us=wall_prof, busy_us=busy,
+                    busy_share=busy / wall_prof, kernels=len(kern),
+                    groups=groups)
+
+    rng = np.random.default_rng(1)
+    out = {}
+    try:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 256)),
+                               device=dev)
+        with torch.inference_mode():
+            out["prefill"] = run("prefill S=256", lambda: tfm.forward(
+                model, cfg, {"tokens": toks}, mode="prefill"))
+        eng = ServeEngine(cfg, model, max_batch=4, max_len=512)
+        for n in (256, 200, 130, 64):
+            eng.submit(rng.integers(0, cfg.vocab, n), max_new=24)
+        eng.step()                       # admit all four, one decode step
+        out["decode"] = run("one decode step, 4 active slots", eng.step)
+    finally:
+        mla.blockwise_attention, mla.absorbed_attention, moe.moe_block = saved
+    return out
+
+
+def serve_deepseek_v2(dev):
+    """(e) The main path: deepseek-v2-236b at full width, 6 layers (layer
+    0 dense, 5 MoE), bf16, served; MLA runs no kernel, so flash must not
+    launch.  Then the profiler split."""
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config("deepseek-v2-236b", n_layers=MAIN_LAYERS)
+    model, n = _init_model(
+        cfg, dev, torch.bfloat16,
+        note=f" of 60 (layer 0 dense d_ff {cfg.first_dense_d_ff}, "
+             f"{cfg.n_layers - 1} MoE; param_count {cfg.param_count()})")
+    rec, _ = _serve(cfg, model, "deepseek-v2-236b serve")
+    if any(rec["launches"].values()):
+        raise AssertionError(f"deepseek-v2: launches {rec['launches']}, want"
+                             f" none (MLA attends in plain PyTorch)")
+    rec["params"] = n
+    rec["profile"] = _profile_groups(model, cfg, dev)
+    del model
+    _free(dev)
+    return rec
+
+
+def serve_gemma2(dev):
+    """(f) gemma2-27b at full width and depth, bf16, served: flash launches
+    = 46 layers x the prefills, softcap 50 in every one."""
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gemma2-27b")
+    model, n = _init_model(cfg, dev, torch.bfloat16)
+    rec, caps = _serve(cfg, model, "gemma2-27b serve")
+    want = cfg.n_layers * rec["n_prefill"]
+    n_fa = rec["launches"]["flash_attention"]
+    if n_fa != want or set(caps) != {cfg.attn_softcap}:
+        raise AssertionError(f"gemma2: {n_fa} flash launches with softcaps "
+                             f"{sorted(set(caps))}, want {want} with "
+                             f"{cfg.attn_softcap}")
+    rec["params"] = n
+    del model
+    _free(dev)
+    return rec
+
+
+def prefill_models(dev, gen):
+    """(g) One prefill of each other new arch at full width (depth cut
+    where the card cannot hold it), bf16: real logits finite, flash
+    launches = the attention layers.  internvl2 then decodes 4 steps
+    through ``forward``; hubert-xlarge runs ``forward`` only."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.models import transformer as tfm
+
+    rng = np.random.default_rng(3)
+    out, by_dtype = {}, {dn: 0 for dn in fak.launches_by_dtype}
+    for arch, layers in PREFILL_ONLY:
+        cfg = (get_config(arch, n_layers=layers) if layers
+               else get_config(arch))
+        model, n = _init_model(cfg, dev, torch.bfloat16)
+        if cfg.frontend == "audio":
+            B, S = 2, 500
+            batch = {"features": torch.randn((B, S, cfg.frontend_dim),
+                                             generator=gen, device=dev),
+                     "mask": torch.as_tensor(rng.random((B, S)) < 0.3,
+                                             device=dev).float()}
+            mode = "train"
+        else:
+            B, S = 1, 384
+            nv = cfg.n_vision_tokens
+            batch = {"tokens": torch.as_tensor(
+                rng.integers(0, cfg.vocab, (B, S - nv)), device=dev)}
+            if nv:
+                batch["vision"] = torch.randn((B, nv, cfg.d_model),
+                                              generator=gen, device=dev
+                                              ).to(torch.bfloat16)
+            mode = "prefill"
+        _zero_flash_counts()
+        with torch.inference_mode():
+            _sync(dev)
+            t = time.perf_counter()
+            logits, cache, _ = tfm.forward(model, cfg, batch, mode=mode)
+            _sync(dev)
+            ms = (time.perf_counter() - t) * 1e3
+        launches = fak.launches
+        for dn, count in fak.launches_by_dtype.items():
+            by_dtype[dn] += count
+        if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
+            raise AssertionError(f"{arch}: non-finite prefill logits")
+        if launches != cfg.n_layers:
+            raise AssertionError(f"{arch}: {launches} flash launches, want "
+                                 f"{cfg.n_layers}")
+        line = (f"{arch}: {mode} B={B} S={S}: {ms:.3f} ms, logits finite, "
+                f"{launches} flash launches (hd {cfg.head_dim}, "
+                f"{'causal' if cfg.causal else 'non-causal'})")
+        rec = dict(layers=cfg.n_layers, params=n, ms=ms, launches=launches)
+        if cfg.frontend == "vision":       # 4 decode steps after it
+            S_max = S + 4
+            dc = tfm.init_cache(cfg, B, S_max, device=dev)
+            for k, v in cache.items():
+                dc[k][:, :, :S] = v
+            nxt = logits[:, -1].argmax(-1)
+            with torch.inference_mode():
+                for t in range(S, S_max):
+                    pos = torch.full((B, 1), t, dtype=torch.int32,
+                                     device=dev)
+                    lg, dc, _ = tfm.forward(model, cfg,
+                                            {"tokens": nxt[:, None]},
+                                            mode="decode", cache=dc,
+                                            positions=pos,
+                                            cache_len=pos + 1)
+                    if not bool(torch.isfinite(lg[..., :cfg.vocab]).all()):
+                        raise AssertionError(f"{arch}: non-finite decode "
+                                             f"logits at {t}")
+                    nxt = lg[:, -1].argmax(-1)
+            line += f"; 4 decode steps after {nv} vision tokens, finite"
+        log(line)
+        out[arch] = rec
+        del model, logits, cache
+        _free(dev)
+    return out, by_dtype
+
+
+def check_ring_decode(dev):
+    """(h) hymba-1.5b at full width, 4 layers (windows [0, 1024, 0, 0]),
+    f32: 1100 teacher-forced positions through ``decode_unrolled`` (a ring
+    of 1024 slots in layer 1) against the uniform ``forward(mode="decode")``
+    with a 1152-long cache and the same window; max |dlogits| <= 1e-4 x
+    max |logits| at every step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config(RING["arch"], n_layers=RING["layers"])
+    P, S_max = RING["positions"], RING["cache"]
+    model = tfm.init_model(cfg, seed=4, device=dev, dtype=torch.float32)
+    ring = tfm.init_cache_unrolled(cfg, 1, S_max, dtype=torch.float32,
+                                   device=dev)
+    full = tfm.init_cache(cfg, 1, S_max, dtype=torch.float32, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab, (1, P)), device=dev)
+    V, errs = cfg.vocab, []
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for t in range(P):
+            pos = torch.full((1, 1), t, dtype=torch.int32, device=dev)
+            lr, ring = tfm.decode_unrolled(model, cfg, toks[:, t:t + 1],
+                                           ring, pos)
+            lf, full, _ = tfm.forward(model, cfg,
+                                      {"tokens": toks[:, t:t + 1]},
+                                      mode="decode", cache=full,
+                                      positions=pos, cache_len=pos + 1)
+            errs.append(torch.stack([(lr - lf)[..., :V].abs().max(),
+                                     lf[..., :V].abs().max()]))
+    e = torch.stack(errs).cpu()
+    wall = time.perf_counter() - t0
+    ratio = e[:, 0] / e[:, 1]
+    sizes = [lc["k"].shape[1] for lc in ring["layers"]]
+    held = sorted(ring["layers"][1]["pos"][0].tolist())
+    if held != list(range(P - cfg.window, P)):
+        raise AssertionError(f"ring of layer 1 holds positions "
+                             f"{held[:3]}...{held[-3:]}, want the last "
+                             f"{cfg.window}")
+    if not bool((ratio <= 1e-4).all()):
+        bad = int(torch.nonzero(ratio > 1e-4)[0])
+        raise AssertionError(f"ring decode: step {bad} differs by "
+                             f"{float(ratio[bad]):.3g} of max |logits|")
+    log(f"ring decode {cfg.name}, {cfg.n_layers} layers, windows "
+        f"{cfg.layer_windows()}, f32: {P} positions, cache slots {sizes} "
+        f"against {S_max}; worst max|dlogits| / max|logits| "
+        f"{float(ratio.max()):.3g} (bar 1e-4), after position "
+        f"{cfg.window}: {float(ratio[cfg.window:].max()):.3g}; layer 1's "
+        f"ring holds positions {held[0]}..{held[-1]}; {wall:.2f} s for "
+        f"both paths")
+    del model
+    _free(dev)
+    return dict(positions=P, worst_ratio=float(ratio.max()), wall_s=wall)
+
+
+def check_models(dev):
+    """Phase 7: the rest of the model path.  Returns its JSON record and
+    the flash launches of its model runs, by dtype."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(7)
+    t_phase = time.perf_counter()
+    rec = {"card": _card()}
+    rec["flash_hd80"] = check_flash80(dev, gen)
+    rec["moe"] = check_moe_full(dev, gen)
+    rec["mla"] = check_mla_full(dev, gen)
+    launches = check_smoke_models(dev)
+    rec["deepseek_v2"] = serve_deepseek_v2(dev)
+    rec["gemma2"] = serve_gemma2(dev)
+    rec["prefill"], prefill_launches = prefill_models(dev, gen)
+    for run in (rec["deepseek_v2"]["flash_by_dtype"],
+                rec["gemma2"]["flash_by_dtype"], prefill_launches):
+        for dn, n in run.items():
+            launches[dn] += n
+    rec["ring"] = check_ring_decode(dev)
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{rec['card']}] phase 7 (models) took {rec['phase_s']:.1f} s; "
+        f"flash launches of its model runs {launches}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 def main():
     try:
         import torch
@@ -1328,6 +2019,15 @@ def main():
         log(_card())
         print(json.dumps({"dse": check_dse()}), flush=True)
         return 0
+    if sys.argv[1:] == ["--models"]:
+        # phase 7 alone, after phase 1 (the builds, TF32 off)
+        setup()
+        print(json.dumps({"models": check_models(dev)}), flush=True)
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
     setup()
     gen = torch.Generator(device=dev).manual_seed(0)
     fa = check_flash(dev, gen)
@@ -1338,21 +2038,23 @@ def main():
     del model
     engine = check_engine()
     dse = check_dse()
+    models = check_models(dev)
+    fa_bf16 = launches["flash_attention"] + models["launches"]["bfloat16"]
+    fa_f32 = f32_launches["flash_attention"] + \
+        models["launches"]["float32"]
 
     fa_src = "src/repro/kernels/flash_attention/kernel.py:25"
     ssd_src = "src/repro/kernels/ssd/kernel.py:23"
     kernels = [
         dict(name="flash_attention_tc", route="cuda",
              source="src/repro_torch/csrc/flash_attention_tc.cu",
-             replaces=fa_src, launches=launches["flash_attention"],
-             **fa["bfloat16"]),
+             replaces=fa_src, launches=fa_bf16, **fa["bfloat16"]),
         dict(name="ssd_tc", route="cuda",
              source="src/repro_torch/csrc/ssd_tc.cu", replaces=ssd_src,
              launches=launches["ssd"], **sd["bfloat16"]),
         dict(name="flash_attention_f32", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
-             replaces=fa_src, launches=f32_launches["flash_attention"],
-             **fa["float32"]),
+             replaces=fa_src, launches=fa_f32, **fa["float32"]),
         dict(name="ssd_f32", route="cuda",
              source="src/repro_torch/csrc/ssd.cu", replaces=ssd_src,
              launches=f32_launches["ssd"], **sd["float32"]),
@@ -1361,6 +2063,7 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"engine": engine}))
     print(json.dumps({"dse": dse}))
+    print(json.dumps({"models": models}))
     print(json.dumps({"kernels": [{k: kr[k] for k in keys}
                                   for kr in kernels]}))
     print(json.dumps({"ok": True, "device": {

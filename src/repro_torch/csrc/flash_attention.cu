@@ -20,10 +20,10 @@
 // In f32 the peak is the CUDA cores' 67 TFLOP/s, and this kernel runs at
 // low occupancy, so it sits far above either bound.  What the design does
 // about it: K and V tiles are staged once in shared memory and reused by
-// all query rows of the block; each query row is split across
-// hd/16 lanes that interleave their 16 dims so shared-memory reads are
-// conflict-free; key tiles fully outside the causal or window range are
-// skipped, which halves causal work.
+// all query rows of the block; each query row is split across hd/16
+// lanes (8 at hd 80) that interleave their dims so shared-memory reads
+// are conflict-free; key tiles fully outside the causal or window range
+// are skipped, which halves causal work.
 #include <math.h>
 
 #include <cuda_runtime.h>
@@ -48,11 +48,20 @@ struct FaArgs {
   float scale, cap;
 };
 
+// Lanes per query row: hd / 16 where that is a power of two, else 8
+// (hd 80: 10 dims a lane).  The row's lanes reduce their partial dot
+// products by power-of-two shuffles, and the rows must tile the block.
+template <int HD>
+__host__ __device__ constexpr int lanes_per_row() {
+  return ((HD / 16) & (HD / 16 - 1)) == 0 ? HD / 16 : 8;
+}
+
 template <int HD>
 __global__ void __launch_bounds__(kThreads) fa_fwd(FaArgs a) {
-  constexpr int TPR = HD / 16;         // lanes per query row
-  constexpr int DPT = HD / TPR;        // dims per lane (16)
-  constexpr int BQ = kThreads / TPR;   // query rows per block
+  constexpr int TPR = lanes_per_row<HD>();  // lanes per query row
+  constexpr int DPT = HD / TPR;             // dims per lane
+  constexpr int BQ = kThreads / TPR;        // query rows per block
+  static_assert(HD % TPR == 0 && 32 % TPR == 0, "rows must tile a warp");
   __shared__ float Ks[kBK][HD];
   __shared__ float Vs[kBK][HD];
 
@@ -138,7 +147,7 @@ __global__ void __launch_bounds__(kThreads) fa_fwd(FaArgs a) {
 
 template <int HD>
 void launch_hd(const FaArgs& a, cudaStream_t st) {
-  constexpr int BQ = kThreads / (HD / 16);
+  constexpr int BQ = kThreads / lanes_per_row<HD>();
   fa_fwd<HD><<<dim3((a.Sq + BQ - 1) / BQ, a.B * a.H), kThreads, 0, st>>>(a);
 }
 
@@ -147,6 +156,7 @@ cudaError_t launch(const FaArgs& a, int hd, cudaStream_t st) {
     case 16: launch_hd<16>(a, st); break;
     case 32: launch_hd<32>(a, st); break;
     case 64: launch_hd<64>(a, st); break;
+    case 80: launch_hd<80>(a, st); break;  // hubert-xlarge
     case 128: launch_hd<128>(a, st); break;
     default: return cudaErrorInvalidValue;
   }

@@ -44,6 +44,11 @@
 //    tile then feeds half the rows.
 //  - Shared memory: (64 + 6 * 64 * groups) * (hd + 8) * 2 bytes: 64,512 at
 //    hd=64 with one key group, 119,808 with two.
+//  - Any head dim that is a multiple of 16 fits: the products step through
+//    it 16 (k) or 8 (n) at a time, and a row of hd + 8 bf16 is a whole
+//    number of 16-byte pieces, whose 8 rows an ldmatrix reads fall in 8
+//    different bank groups when (hd + 8) / 8 is odd (hd 80: 11).  The
+//    launcher instantiates 16, 32, 64, 80 (hubert-xlarge) and 128.
 //  - Launched with programmatic dependent launch, so its blocks are placed
 //    while the kernel before it drains; they wait for it before reading.
 // Registers (ptxas -v, CUDA 12.8, sm_90a), one key group / two: 189 / 181
@@ -360,6 +365,7 @@ extern "C" int fa_forward_tc(const void* q, const void* k, const void* v,
     case 16: return launch_hd<16>(a, st);
     case 32: return launch_hd<32>(a, st);
     case 64: return launch_hd<64>(a, st);
+    case 80: return launch_hd<80>(a, st);  // hubert-xlarge
     case 128: return launch_hd<128>(a, st);
     default: return cudaErrorInvalidValue;
   }

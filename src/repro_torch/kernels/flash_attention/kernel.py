@@ -7,7 +7,9 @@ the kernel (:func:`entry`): bf16 runs on the tensor cores
 (``csrc/flash_attention_tc.cu``), f32 on the CUDA cores
 (``csrc/flash_attention.cu``), which keeps the f32 tolerance.  There is no
 fallback from one to the other.  ``launches`` counts the calls that
-launched, so a run can show that its prefill went through the kernels.
+launched, so a run can show that its prefill went through the kernels;
+``launches_by_dtype`` splits the same count by the dtype (the kernel) that
+launched.
 """
 from __future__ import annotations
 
@@ -19,12 +21,13 @@ import torch
 from .. import _build
 
 launches = 0
+launches_by_dtype = {"bfloat16": 0, "float32": 0}
 
 # dtype -> (library in csrc/, C entry point); both take the same arguments
 ENTRIES = {torch.bfloat16: ("flash_attention_tc", "fa_forward_tc"),
            torch.float32: ("flash_attention", "fa_forward")}
 DTYPES = tuple(ENTRIES)
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)   # 80: hubert-xlarge
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -92,4 +95,5 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=None):
                       float(scale), float(cap), stream)
     _build.check(rc, "flash_attention")
     launches += 1
+    launches_by_dtype[str(q.dtype).removeprefix("torch.")] += 1
     return out

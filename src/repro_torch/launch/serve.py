@@ -3,8 +3,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --prompts "hello world" "the quick brown"
 
-Runs on the card; ``--device cpu`` runs the plain PyTorch path instead.
-Without ``--device cpu`` and without CUDA it raises.
+Serves every causal arch id of the registry (a vision model gets text
+prompts alone); the encoder-only hubert-xlarge is refused.  Runs on the
+card; ``--device cpu`` runs the plain PyTorch path instead.  Without
+``--device cpu`` and without CUDA it raises.
 """
 from __future__ import annotations
 
@@ -31,6 +33,9 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if not cfg.causal:
+        raise ValueError(f"{args.arch} is encoder-only: it has no "
+                         f"autoregressive decode to serve")
     params = tfm.init_model(cfg, seed=0, device=device)
 
     tok = ByteTokenizer()

@@ -114,6 +114,8 @@ def embed_specs(cfg):
     s = {"tok": PSpec((cfg.vocab_padded, cfg.d_model), scale=1.0)}
     if not cfg.tie_embeddings:
         s["unembed"] = PSpec((cfg.d_model, cfg.vocab_padded))
+    if cfg.frontend == "audio":
+        s["frontend_proj"] = PSpec((cfg.frontend_dim, cfg.d_model))
     return s
 
 

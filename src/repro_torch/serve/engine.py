@@ -1,9 +1,10 @@
 """Continuous-batching serving engine.  Counterpart of
 ``repro.serve.engine``.
 
-Fixed decode slots share one stacked KV cache; requests are admitted into
-free slots (prefill writes the slot's cache region in place), and one
-batched decode step advances every active slot.  The loop follows
+Fixed decode slots share one stacked cache (K/V, or MLA's latent
+``ckv``/``kr``, along the sequence; conv and SSM states); requests are
+admitted into free slots (prefill writes the slot's cache region in
+place), and one batched decode step advances every active slot.  The loop follows
 Smart-Ticking semantics: when no slot is active it returns without any
 device work, and request arrival wakes it; idle slots ride along.
 
@@ -83,7 +84,7 @@ class ServeEngine:
                 S0 = len(r.prompt)
                 for k, v in pcache.items():
                     dst = self.cache[k]
-                    if k in ("k", "v"):
+                    if k in tfm.IN_PLACE:     # along the sequence
                         dst[:, slot, :S0] = v[:, 0].to(dst.dtype)
                     else:
                         dst[:, slot] = v[:, 0].to(dst.dtype)

@@ -29,6 +29,10 @@ CASES = [
     (2, 128, 2, 2, 64, True, 0, 50.0),
     (1, 128, 4, 4, 32, False, 0, 0.0),
     (1, 512, 8, 2, 64, True, 128, 30.0),
+    # head dim 80 (hubert-xlarge: non-causal, H == KV), and causal with a
+    # window and softcap
+    (2, 128, 4, 4, 80, False, 0, 0.0),
+    (1, 256, 4, 2, 80, True, 64, 50.0),
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -98,12 +102,12 @@ def test_window_changes_the_result():
 
 def test_cpu_path_never_launches_and_kernel_refuses_cpu():
     (_, (q, k, v)) = _both(_mk(1, 32, 2, 1, 16), "float32")
-    before = fa_kernel.launches
+    before = fa_kernel.launches, dict(fa_kernel.launches_by_dtype)
     pos = torch.arange(32).expand(1, 32)
     fa_ops.flash_attention(q, k, v, pos, pos)
     with pytest.raises(ValueError, match="CUDA"):
         fa_kernel.flash_attention(q, k, v)
-    assert fa_kernel.launches == before
+    assert (fa_kernel.launches, fa_kernel.launches_by_dtype) == before
 
 
 def _tc_rounding(q, k, v, *, causal=True, window=0, cap=0.0, block=64):
@@ -178,7 +182,21 @@ def test_dtype_alone_routes_to_a_kernel():
         (_, (q, k, v)) = _both(_mk(1, 32, 2, 1, 16),
                                "bfloat16" if dtype == torch.bfloat16
                                else "float32")
-        before = fa_kernel.launches
+        before = fa_kernel.launches, dict(fa_kernel.launches_by_dtype)
         with pytest.raises(ValueError, match="CUDA"):
             fa_kernel.flash_attention(q, k, v)
-        assert fa_kernel.launches == before
+        assert (fa_kernel.launches, fa_kernel.launches_by_dtype) == before
+    assert set(fa_kernel.launches_by_dtype) == \
+        {str(d).removeprefix("torch.") for d in fa_kernel.DTYPES}
+
+
+def test_head_dim_80_is_built_by_both_kernels():
+    """hubert-xlarge's head dim: the launcher takes it, and both sources
+    instantiate it (the f32 kernel with 8 lanes a row, a power of two, as
+    its shuffles need); other head dims still raise, with no fallback."""
+    from repro_torch.kernels import _build
+    assert 80 in fa_kernel.HEAD_DIMS and 48 not in fa_kernel.HEAD_DIMS
+    for dtype in fa_kernel.DTYPES:
+        src = (_build.CSRC / f"{fa_kernel.entry(dtype)[0]}.cu").read_text()
+        assert "case 80:" in src and "launch_hd<80>" in src
+    assert "HD / 16 : 8" in (_build.CSRC / "flash_attention.cu").read_text()

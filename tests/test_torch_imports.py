@@ -27,7 +27,11 @@ def test_importing_every_module_loads_no_jax_or_repro():
     assert "repro_torch.core.engine" in mods
     assert "repro_torch.sims.memsys" in mods
     for m in ("dse.runner", "dse.sweep", "dse.schedule", "dse.report",
-              "obs.bus"):
+              "obs.bus", "models.moe", "models.mla", "configs.shapes",
+              "configs.deepseek_v2_236b", "configs.gemma2_27b",
+              "configs.grok_1_314b", "configs.deepseek_67b",
+              "configs.phi3_medium_14b", "configs.internvl2_26b",
+              "configs.hubert_xlarge"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

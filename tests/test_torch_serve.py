@@ -106,11 +106,15 @@ def test_sliding_window_reaches_prefill(hymba):
 
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "stablelm-1.6b",
-                                  "mamba2-130m"])
+                                  "mamba2-130m", "deepseek-v2-236b",
+                                  "grok-1-314b"])
 def test_serve_engine_tokens_identical_to_jax(arch):
     """Greedy continuous batching, 3 requests on 2 slots (one waits for a
     free slot).  With f32 weights the top-2 logit gaps of these seeded
-    runs are far above the 1e-4 logit agreement, so tokens must match."""
+    runs are far above the 1e-4 logit agreement, so tokens must match.
+    deepseek-v2 admits into the MLA latent cache (``ckv``/``kr``) and
+    decodes against it in absorbed form; both MoE archs route and drop
+    by capacity at every step, as the JAX engine does."""
     cfg = _cfg(arch)
     jp, tp = _models(cfg, seed=1)
     rng = np.random.default_rng(0)
@@ -153,14 +157,86 @@ def test_launch_serve_needs_cuda_unless_cpu(capsys, monkeypatch):
 
 
 def test_unported_archs_raise_and_ported_configs_match():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("deepseek-v2-236b")
+    """Every arch id of the JAX registry resolves in the port; the one
+    refusal left is an unknown id's.  (The name dates from when seven of
+    the ten ids were still refused.)"""
+    for arch in ("deepseek-v2-236b", "gemma2-27b", "hubert-xlarge",
+                 "internvl2-26b"):
+        assert get_config(arch).name == arch
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("llama-7b")
     hymba = get_config("hymba-1.5b")
     assert (hymba.n_layers, hymba.d_model, hymba.n_heads, hymba.n_kv_heads,
             hymba.d_ff, hymba.n_ssm_heads, hymba.vocab_padded) == \
         (32, 1600, 25, 5, 5504, 50, 32256)
     assert not ttfm.needs_unrolled_decode(hymba, 512)
     assert get_smoke_config("mamba2-130m").ssm_chunk == 8
+
+
+def test_engine_admits_into_the_mla_latent_cache():
+    """The slot engine's cache for an MLA model is the latent one, [L, B,
+    S, kv_lora] and [L, B, S, rope]; admission writes a prompt's latents
+    along the sequence, and decode writes the next position in place."""
+    cfg = _cfg("deepseek-v2-236b")
+    _, tp = _models(cfg)
+    eng = ServeEngine(cfg, tp, max_batch=2, max_len=16)
+    assert set(eng.cache) == {"ckv", "kr"}
+    assert eng.cache["ckv"].shape == (cfg.n_layers, 2, 16, cfg.kv_lora)
+    assert eng.cache["kr"].shape == (cfg.n_layers, 2, 16, cfg.qk_rope_dim)
+    ckv = eng.cache["ckv"]
+    eng.submit([3, 1, 4, 1, 5], max_new=3)
+    eng.step()                                   # admit (5) + one decode
+    assert eng.cache["ckv"] is ckv               # updated in place
+    # the idle slot 1 rides along at position 0, as in the JAX engine
+    written = ckv[:, 1].abs().sum(-1) != 0
+    assert not written[:, 1:].any()
+    filled = (ckv[:, 0].abs().sum(-1) != 0).sum(-1)
+    assert filled.tolist() == [6] * cfg.n_layers
+
+
+def test_vision_model_serves_text_prompts():
+    """A reference fault the port does not copy: the JAX ServeEngine
+    prefills with tokens alone, which the JAX ``embed_inputs`` of a vision
+    model refuses (KeyError 'vision').  The port embeds a text-only batch
+    as text; with no vision tokens the model is the same function as its
+    text-only config, and the JAX package computes that one."""
+    cfg = jax_smoke("internvl2-26b")
+    jp, tp = _models(cfg, seed=2)
+    with pytest.raises(KeyError, match="vision"):
+        eng = JaxEngine(cfg, jp, max_batch=1, max_len=16)
+        eng.submit([1, 2, 3], max_new=2)
+        eng.run_until_idle()
+    text = dataclasses.replace(cfg, frontend="none")
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (1, 9))
+    lj, _, _ = jtfm.forward(jp, text, {"tokens": jnp.asarray(toks, jnp.int32)},
+                            mode="prefill")
+    with torch.inference_mode():
+        lt, _, _ = ttfm.forward(tp, cfg, {"tokens": torch.as_tensor(toks)},
+                                mode="prefill")
+    _close(lt[..., :cfg.vocab], np.asarray(lj)[..., :cfg.vocab])
+    outs = []
+    for engine, params, c in ((JaxEngine, jp, text), (ServeEngine, tp, cfg)):
+        eng = engine(c, params, max_batch=2, max_len=24)
+        for n in (5, 9):
+            eng.submit(toks[0, :n].tolist(), max_new=4)
+        outs.append({r.rid: r.out for r in eng.run_until_idle()})
+    assert outs[1] == outs[0]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "gemma2-27b",
+                                  "internvl2-26b"])
+def test_launch_serve_runs_new_causal_archs(arch, capsys):
+    done = launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                              "--max-new", "2", "--max-len", "8",
+                              "--prompts", "hi"])
+    assert [len(r.out) for r in done] == [2]
+    assert "'hi' ->" in capsys.readouterr().out
+
+
+def test_launch_serve_refuses_encoder_only():
+    with pytest.raises(ValueError, match="encoder-only"):
+        launch_serve.main(["--arch", "hubert-xlarge", "--smoke",
+                           "--device", "cpu"])
 
 
 def test_from_jax_params_bf16():
