@@ -60,9 +60,8 @@ Phases (each raises on failure, and the run then exits non-zero):
      widths (160 experts, top-6, 2 shared), f32, 256 tokens on the group
      path, against the dense oracle; (c) one MLA layer at its widths, f32,
      absorbed decode against the materialised form; (d) each new arch's
-     smoke config in f32, card against CPU (phi3-medium's head dim 12 is
-     not one the kernel takes: skipped, the full width covers it); (e)
-     the main path: deepseek-v2-236b at full width, 6 of 60 layers (42.5
+     smoke config in f32, card against CPU (phi3-medium's head dim 12 runs
+     padded to 16); (e) the main path: deepseek-v2-236b at full width, 6 of 60 layers (42.5
      GB bf16), served by ``ServeEngine`` like hymba in phase 3, with no
      flash launch (MLA attends in plain PyTorch) and a profiler split by
      group; (f) gemma2-27b whole (46 layers, 38.8 GB), served the same
@@ -73,12 +72,29 @@ Phases (each raises on failure, and the run then exits non-zero):
      = attention layers; (h) hymba-1.5b at full width, 4 layers, f32:
      1100 teacher-forced positions of ring-buffer decode against the
      uniform decode, within 1e-4 of max |logits| at every step.
-Then the engine's, the DSE path's and the models' JSON records, the
-kernels' JSON record (the line before the last; the flash records'
-launches add phase 7's model runs to phase 3's), and ``{"ok": true,
-"device": {...}}`` as the last line.  ``python3 chip_smoke.py --engine``
-runs phase 5 alone, ``--dse`` phase 6, ``--models`` phases 1 and 7.
-Imports nothing of JAX.
+  8. sims: the remaining simulators and the tracing layer, on the engine
+     and the lanes of phases 5-6 (no hand-written kernel either).  (a)
+     Onira's microbenchmarks and MLP sweep against ONIRA_REF, each CPI
+     beside ``analytic_cpi``, the final state against the port's CPU run;
+     (b) 256 points of taken-branch flush x memory latency through
+     run_sweep (pipelined and not) and one run_batch, identical rows equal
+     to ONIRA_SWEEP_REF, four lanes equal to single runs, then the
+     ``shape.cpu`` family; (c) TrioSim's five 4-GPU plans and
+     phi3-medium-14b whole on 16 GPUs (a network kind of 16 ports)
+     against TRIOSIM_REF, each final state against the port's CPU run
+     (computed by a child process while the card works); (d) the
+     translation chain, the page fault's Fig. 6b backtrace and 1024
+     seeded loads against XLAT_REF; (e) memsys under
+     ``Monitor.run_monitored`` with a thread polling its HTTP endpoint
+     (MONITOR_REF), the engine trace into a DBTracer and Daisen HTML
+     under build/sims/, and (b)'s sweep again with a JsonlSink on the bus
+     (identical rows) and its Chrome trace.
+Then the engine's, the DSE path's, the models' and the sims' JSON
+records, the kernels' JSON record (the line before the last; the flash
+records' launches add phase 7's model runs to phase 3's), and ``{"ok":
+true, "device": {...}}`` as the last line.  ``python3 chip_smoke.py
+--engine`` runs phase 5 alone, ``--dse`` phase 6, ``--models`` phases 1
+and 7, ``--sims`` phase 8.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -271,6 +287,95 @@ SWEEP_REF = {
             14: (16, 0.8, 3336.0, 2827, 8076, 4467, 3686),
         }),
 }
+
+# phase 8: the remaining sims and the tracing layer.  Each constant is the
+# JAX package's result on the CPU; CHANGES.md has the command that
+# made them.  (a) benchmarks/onira_cpi.py: run_microbenches() (insts,
+# cycles, done of each program, and the run's epochs and virtual time) and
+# run_mlp_sweep() (CPI by independent loads).
+ONIRA_REF = dict(
+    micro={"ALU": (65, 64.0, True), "RAW_HZD": (65, 416.0, True),
+           "BR_LOOP": (98, 127.0, True), "LOOP1": (98, 159.0, True),
+           "NESTED_BR": (62, 91.0, True), "ST_LD": (49, 224.0, True),
+           "CONC_ST": (33, 42.0, True), "IND_LD": (33, 88.0, True)},
+    epochs=277, virtual_time=417.0,
+    mlp={1: 6.117647058823529, 2: 3.393939393939394, 4: 1.9692307692307693,
+         8: 1.7345132743362832, 16: 1.731958762886598})
+# (b) the 8 microbenchmarks at mem_latency 5 swept over the taken-branch
+# flush (kind.cpu.flush_cycles 1..8) x memory latency (conn_latency 1..32),
+# and the shape.cpu family (1, 2, 4, 8 pipelines x flush 1, 3, 8); rows are
+# DSE_ROW plus ONIRA_COLS (_onira_extract), as SWEEP_REF's
+ONIRA_COLS = ("cycles", "insts")
+ONIRA_SWEEP_REF = {
+    "sweep256": dict(
+        n=256,
+        sha256="de7d6b0b1167fb294f276c5f5c2bd7f6"
+               "9c7a73f6556c031b3bc72c35cbe1b24f",
+        sums=dict(virtual_time=295831.0, epochs=99044, ticks=212312,
+                  progress_ticks=176216, delivered=53248, cycles=675136.0,
+                  insts=128768),
+        axes=("kind.cpu.flush_cycles", "conn_latency"),
+        sample={
+            0: (1.0, 1.0, 161.0, 162, 748, 634, 208, 639.0, 503),
+            1: (1.0, 2.0, 225.0, 198, 764, 635, 208, 749.0, 503),
+            37: (2.0, 6.0, 481.0, 284, 838, 696, 208, 1266.0, 503),
+            85: (3.0, 22.0, 1505.0, 436, 839, 696, 208, 3183.0, 503),
+            128: (5.0, 1.0, 222.0, 199, 809, 695, 208, 883.0, 503),
+            170: (6.0, 11.0, 801.0, 370, 839, 696, 208, 2090.0, 503),
+            201: (7.0, 10.0, 737.0, 375, 839, 696, 208, 2035.0, 503),
+            255: (8.0, 32.0, 2145.0, 502, 839, 696, 208, 4648.0, 503),
+        }),
+    "family": dict(
+        n=12,
+        sha256="aaea177322e24b101b417af917b17851"
+               "d67fd13562d9313078b456f9519bae65",
+        sums=dict(virtual_time=3948.0, epochs=2430, ticks=4726,
+                  progress_ticks=3874, delivered=1008, cycles=7884.0,
+                  insts=3072),
+        axes=("shape.cpu", "kind.cpu.flush_cycles"),
+        sample={
+            0: (1, 1.0, 65.0, 66, 67, 65, 0, 64.0, 65),
+            2: (1, 8.0, 65.0, 66, 67, 65, 0, 64.0, 65),
+            4: (2, 3.0, 417.0, 202, 230, 162, 64, 480.0, 130),
+            6: (4, 1.0, 417.0, 222, 430, 358, 64, 674.0, 326),
+            8: (4, 8.0, 417.0, 292, 476, 404, 64, 996.0, 326),
+            11: (8, 8.0, 417.0, 315, 838, 696, 208, 1516.0, 503),
+        }),
+}
+# (c) simulate_step: benchmarks/triosim_validation.py's PLANS (stablelm-
+# 1.6b, 24 layers, batch 16, seq 1024, micro 4), and phi3-medium-14b whole
+# (40 layers), batch 16, seq 2048, micro 8 on 16 GPUs: (done, step_us,
+# epochs) by (arch, layers or None for all, batch, seq, micro, dp, tp, pp)
+TRIOSIM_REF = {
+    ("stablelm-1.6b", 24, 16, 1024, 4, 4, 1, 1): (True, 580981.0, 24),
+    ("stablelm-1.6b", 24, 16, 1024, 4, 1, 4, 1): (True, 441148.0, 66),
+    ("stablelm-1.6b", 24, 16, 1024, 4, 1, 1, 4): (True, 761843.0, 174),
+    ("stablelm-1.6b", 24, 16, 1024, 4, 2, 2, 1): (True, 485124.0, 72),
+    ("stablelm-1.6b", 24, 16, 1024, 4, 1, 2, 2): (True, 549463.0, 142),
+    ("phi3-medium-14b", None, 16, 2048, 8, 2, 4, 2): (True, 2853103.0, 338),
+    ("phi3-medium-14b", None, 16, 2048, 8, 2, 2, 4): (True, 3450641.0, 610),
+}
+# (d) run_translation_study: the two-page chain of
+# tests/sims/test_stdlib_components.py, and 1024 seeded loads over 256
+# pages (XLAT_SEEDED_UNTIL; epochs from the same run)
+XLAT_CHAIN = (8, 4096 + 8, 64, 4096 + 64, 128)
+XLAT_SEEDED = dict(n=1024, pages=256, seed=0, until=1e6)
+XLAT_REF = dict(
+    chain=dict(translated=5, l1_hits=3, l1_misses=2, l2_hits=0, l2_misses=2,
+               walks=2, virtual_time=65.0),
+    seeded=dict(translated=1024, l1_hits=16, l1_misses=1008, l2_hits=49,
+                l2_misses=959, walks=959, virtual_time=27077.0,
+                epochs=8897))
+# (e) memsys 16 cores x 96 requests (mixed), sample_period 100, under
+# Monitor.run_monitored(until=20000, chunk=1000): finish_stats,
+# progress_ticks, samples taken and their sum, chunks, hang flag
+MONITOR_RUN = dict(n_cores=16, pattern="mixed", n_reqs=96,
+                   sample_period=100.0, until=20000.0, chunk=1000.0)
+MONITOR_REF = dict(virtual_time=20000.0, epochs=4099, ticks=11185,
+                   delivered=6144, reads_done=1536, hits=0, misses=1536,
+                   remaining=0, outstanding=0, progress_ticks=6160,
+                   sample_idx=200, buf_samples_sum=950, chunks=20,
+                   hung=False)
 
 
 def log(*a):
@@ -1176,16 +1281,16 @@ def _dse_untils(b, top):
     return (lo + (top - lo) * mix / max(b - 1, 1)).astype(np.float32)
 
 
-def _check_rows(name, rows, ref):
-    """Rows against a SWEEP_REF entry; on a mismatch, print the sampled
-    rows' differences and fail."""
+def _check_rows(name, rows, ref, cols=DSE_ROW):
+    """Rows against a SWEEP_REF (or ONIRA_SWEEP_REF) entry; on a mismatch,
+    print the sampled rows' differences and fail."""
     import hashlib
     digest = hashlib.sha256(json.dumps(rows, sort_keys=True, separators=(
         ",", ":")).encode()).hexdigest()
-    sums = {c: sum(r[c] for r in rows) for c in DSE_ROW}
+    sums = {c: sum(r[c] for r in rows) for c in cols}
     if (len(rows), digest, sums) == (ref["n"], ref["sha256"], ref["sums"]):
         return
-    cols = ref["axes"] + DSE_ROW
+    cols = ref["axes"] + cols
     for i, want in ref["sample"].items():
         got = tuple(rows[i].get(c) for c in cols) if i < len(rows) else None
         if got != want:
@@ -1649,19 +1754,17 @@ def check_smoke_models(dev):
 
     import numpy as np
     import torch
-    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs import get_smoke_config
     from repro_torch.kernels.flash_attention import kernel as fak
     from repro_torch.models import transformer as tfm
 
     _zero_flash_counts()
     for arch in MODELS_SMOKE:
         cfg = get_smoke_config(arch)
-        if cfg.head_dim not in fak.HEAD_DIMS:
-            log(f"smoke {cfg.name}: skipped, head_dim {cfg.head_dim} is "
-                f"not a head dim the kernel takes {fak.HEAD_DIMS}; the "
-                f"full-width {arch} (head_dim {get_config(arch).head_dim}) "
-                f"runs in (g)")
-            continue
+        padded = fak.padded_head_dim(cfg.head_dim)
+        if padded != cfg.head_dim:
+            log(f"smoke {cfg.name}: head_dim {cfg.head_dim} runs padded "
+                f"to {padded}")
         cpu = tfm.init_model(cfg, seed=2, device="cpu",
                              dtype=torch.float32)
         gpu = copy.deepcopy(cpu).to(dev)
@@ -1992,6 +2095,518 @@ def check_models(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+ONIRA_AXES = {"kind.cpu.flush_cycles": [float(f) for f in range(1, 9)],
+              "conn_latency": [float(lat) for lat in range(1, 33)]}
+ONIRA_FAMILY_AXES = {"shape.cpu": [1, 2, 4, 8],
+                     "kind.cpu.flush_cycles": [1.0, 3.0, 8.0]}
+ONIRA_UNTIL = 20000.0
+XLAT_FRAGMENTS = ("@Core0, instruction, load", "@L1TLB[0], translation",
+                  "@L2TLB, translation", "@MMU, page-walk")
+
+
+def _trio_cfg(arch, layers):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def _trio_name(key):
+    arch, *_, dp, tp, pp = key
+    return f"{arch} dp{dp} tp{tp} pp{pp}"
+
+
+def _cpu_final_states(out_dir):
+    """Child process of phase 8: the port's CPU final states that the
+    card's are held against (onira's microbenchmarks, then each
+    TRIOSIM_REF plan), one file each, written whole before it appears."""
+    import os
+
+    import torch
+    from repro_torch.sims import onira as to, triosim as tt
+    torch.set_num_threads(2)
+
+    def save(name, state):
+        tmp = Path(out_dir) / f".{name}.tmp"
+        torch.save(state, tmp)
+        os.replace(tmp, Path(out_dir) / f"{name}.pt")
+
+    sim, st = to.build_onira([to.MICROBENCHES[n]() for n in to.MICROBENCHES],
+                             device="cpu")
+    save("onira", sim.run(st, until=ONIRA_UNTIL))
+    for key in TRIOSIM_REF:
+        arch, layers, batch, seq, micro, dp, tp, pp = key
+        t = time.perf_counter()
+        r = tt.simulate_step(_trio_cfg(arch, layers), batch, seq, dp, tp, pp,
+                             micro, device="cpu", return_state=True)
+        save(_trio_name(key), dict(state=r["state"],
+                                   seconds=time.perf_counter() - t))
+
+
+class _CpuStates:
+    """The port's CPU final states, computed by a spawned child process
+    while the card works, so that the CPU runs cost phase 8 no time."""
+
+    def __init__(self, out_dir):
+        import multiprocessing
+        self.dir = out_dir
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=_cpu_final_states, args=(str(out_dir),), daemon=True)
+        self.proc.start()
+
+    def get(self, name, timeout=900.0):
+        import torch
+        path = self.dir / f"{name}.pt"
+        t = time.perf_counter()
+        while not path.exists():
+            if not self.proc.is_alive():
+                raise AssertionError(f"the CPU child process ended "
+                                     f"(exit code {self.proc.exitcode}) "
+                                     f"without {name}")
+            if time.perf_counter() - t > timeout:
+                raise AssertionError(f"no CPU state for {name} after "
+                                     f"{timeout} s")
+            time.sleep(0.05)
+        return torch.load(path, weights_only=False)
+
+    def close(self):
+        self.proc.join(timeout=10)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(timeout=10)
+
+
+def _onira_extract(sim, s):
+    """DSE_ROW plus the cycles and the instructions of all pipelines."""
+    from repro_torch.dse import default_extract
+    cs = s.comp_state["cpu"]
+    return dict(default_extract(sim, s),
+                cycles=sum(cs["halt_time"].tolist()),
+                insts=int(cs["retired"].sum()))
+
+
+def check_onira(card, cpu):
+    """(a) benchmarks/onira_cpi.py on the card: run_microbenches and
+    run_mlp_sweep against ONIRA_REF, each CPI beside the analytic model;
+    the microbenchmarks' whole final state against the port's CPU run
+    (from ``cpu``, a :class:`_CpuStates`)."""
+    from repro_torch.sims import onira as to
+
+    t = time.perf_counter()
+    res = to.run_microbenches()
+    mlp = to.run_mlp_sweep()
+    wall = time.perf_counter() - t
+    got = {n: (r["insts"], r["cycles"], r["done"]) for n, r in res.items()}
+    if got != ONIRA_REF["micro"]:
+        raise AssertionError(f"onira microbenches {got} != ONIRA_REF "
+                             f"{ONIRA_REF['micro']}")
+    if mlp != ONIRA_REF["mlp"]:
+        raise AssertionError(f"onira MLP CPIs {mlp} != ONIRA_REF "
+                             f"{ONIRA_REF['mlp']}")
+    progs = [to.MICROBENCHES[n]() for n in to.MICROBENCHES]
+    sim, st = to.build_onira(progs)
+    out, run_s = _timed_run(sim, st, ONIRA_UNTIL)
+    if (int(out.stats.epochs), float(out.time)) != \
+            (ONIRA_REF["epochs"], ONIRA_REF["virtual_time"]):
+        raise AssertionError(f"onira: {int(out.stats.epochs)} epochs to "
+                             f"{float(out.time)}, want ONIRA_REF's")
+    bad = _state_diff(out, cpu.get("onira"))
+    if bad:
+        raise AssertionError(f"onira: card and CPU states differ at {bad}")
+    cpi = {}
+    for name, r in res.items():
+        a = to.analytic_cpi(name)
+        cpi[name] = dict(cpi=r["cpi"], analytic=a,
+                         err=abs(r["cpi"] - a) / a)
+        log(f"onira {name}: {r['insts']} insts in {r['cycles']} cycles, "
+            f"CPI {r['cpi']:.4f}, analytic {a:.4f}, error "
+            f"{100 * cpi[name]['err']:.1f}%")
+        if cpi[name]["err"] >= 0.20:
+            raise AssertionError(f"onira {name}: CPI error beyond the "
+                                 "reference test's 20% band")
+    log(f"[{card}] onira: ONIRA_REF matched ({ONIRA_REF['epochs']} epochs, "
+        f"MLP CPIs {mlp}); the final state equals the CPU run's, f32 by "
+        f"bits; both entry points {wall:.3f} s, a warm run {run_s:.3f} s")
+    return dict(cpi=cpi, mlp=mlp, entry_s=wall, run_s=run_s,
+                epochs=ONIRA_REF["epochs"], card_equals_cpu=True)
+
+
+def check_onira_sweep(card):
+    """(b) the 256-point flush x memory-latency sweep through run_sweep
+    (pipelined and not) and one run_batch, against ONIRA_SWEEP_REF, four
+    lanes against single runs; then the shape.cpu family.  Returns the
+    record, the pipelined rows and what (e) needs to run the sweep again."""
+    import torch
+    from repro_torch import dse
+    from repro_torch.sims import onira as to
+
+    rec = {}
+    cols = DSE_ROW + ONIRA_COLS
+    progs = [to.MICROBENCHES[n]() for n in to.MICROBENCHES]
+    sim, st = to.build_onira(progs)
+    spec = dse.SweepSpec.grid(ONIRA_AXES)
+    pts = spec.points
+    build_fn = dse.memoize_build(lambda: (sim, st))
+    runner = dse.runner_for(sim)
+    pb = dse.build_param_batch(sim, pts)
+    warm = lambda: runner.warm_ladder(st, pb, dse.make_ladder(len(pts)))
+    (rows_p, states), rec["rounds"] = _timed_sweep(
+        "onira sweep-256 run_sweep (autotune, pipelined)", card, runner,
+        warm, lambda: dse.run_sweep(build_fn, spec, until=ONIRA_UNTIL,
+                                    extract=_onira_extract,
+                                    return_states=True))
+    rows_s, rec["rounds_unpipelined"] = _timed_sweep(
+        "onira sweep-256 run_sweep(pipeline=False)", card, runner, warm,
+        lambda: dse.run_sweep(build_fn, spec, until=ONIRA_UNTIL,
+                              extract=_onira_extract, pipeline=False))
+
+    def mono():
+        out = runner.run_batch(dse.stack_states(st, len(pts)), pb,
+                               ONIRA_UNTIL)
+        return [dict(p, **r) for p, r in zip(pts, dse.extract_rows(
+            sim, out, len(pts), _onira_extract))], out
+    (rows_m, out_m), rec["monolithic"] = _timed_sweep(
+        "onira sweep-256 one run_batch", card, runner, warm, mono)
+    if not rows_p == rows_s == rows_m:
+        raise AssertionError("onira sweep-256: pipelined rounds, "
+                             "unpipelined rounds and run_batch give "
+                             "different rows")
+    _check_rows("onira sweep-256", rows_m, ONIRA_SWEEP_REF["sweep256"],
+                cols)
+    log(f"onira sweep-256: the three runs give identical rows, equal to "
+        f"ONIRA_SWEEP_REF ({len(rows_m)} rows)")
+
+    base = sim.default_params()
+    sim.run(sim.copy_state(st), until=-1.0,
+            params=dse.apply_point(base, pts[0]))      # capture
+    seq_s = 0.0
+    for i in DSE_SAMPLED:
+        p = dse.apply_point(base, pts[i])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one = sim.run(sim.copy_state(st), until=ONIRA_UNTIL, params=p)
+        torch.cuda.synchronize()
+        seq_s += time.perf_counter() - t
+        for what, lane in (("run_batch", dse.lane(out_m, i)),
+                           ("run_sweep", states.state(i))):
+            bad = _state_diff(lane, one)
+            if bad:
+                raise AssertionError(f"onira sweep-256 lane {i} ({what}) "
+                                     f"and a single run differ at {bad}")
+    seq_rate = len(DSE_SAMPLED) / seq_s
+    rec["sequential"] = dict(runs=len(DSE_SAMPLED), wall_s=seq_s,
+                             configs_per_s=seq_rate)
+    for k in ("rounds", "rounds_unpipelined", "monolithic"):
+        rec[k]["batching_ratio"] = rec[k]["configs_per_s"] / seq_rate
+    log(f"[{card}] onira sequential baseline: lanes {DSE_SAMPLED} as single "
+        f"runs in {seq_s:.3f} s ({seq_rate:.3f} configs/s), each equal to "
+        f"its lane of run_batch and run_sweep by bits; batching ratio "
+        f"{rec['rounds']['batching_ratio']:.1f}x (pipelined rounds), "
+        f"{rec['rounds_unpipelined']['batching_ratio']:.1f}x (unpipelined),"
+        f" {rec['monolithic']['batching_ratio']:.1f}x (run_batch)")
+    rec["block"] = [_lane_block_profile(sim, st, pts[:b])
+                    for b in (1, rec["rounds"]["chunk"])]
+    for blk in rec["block"]:
+        log(f"[{card}] onira: one lane-batched block of K="
+            f"{sim.super_epoch} at {blk['lanes']} lanes: "
+            f"{blk['block_ms']:.3f} ms ({blk['epoch_ms']:.4f} ms an epoch), "
+            f"{blk['kernels_per_epoch']:.2f} kernels an epoch")
+
+    fam_fn = dse.memoize_build(lambda shape: to.build_onira_family(
+        progs, shape=shape))
+    fam_spec = dse.SweepSpec.grid(ONIRA_FAMILY_AXES)
+    fam = fam_fn(shape={"cpu": 8})
+    fam_runner = dse.runner_for(fam.sim)
+    rows_f, rec["family"] = _timed_sweep(
+        "onira family shape.cpu x flush_cycles", card, fam_runner,
+        lambda: fam_runner.warm_ladder(
+            [fam.state_for()], dse.stack_params([fam.params_for()]),
+            dse.make_ladder(len(fam_spec))),
+        lambda: dse.run_sweep(fam_fn, fam_spec, until=ONIRA_UNTIL,
+                              extract=_onira_extract))
+    _check_rows("onira family", rows_f, ONIRA_SWEEP_REF["family"], cols)
+    log(f"onira family: {len(rows_f)} rows equal to ONIRA_SWEEP_REF")
+    return rec, rows_p, (build_fn, spec)
+
+
+def check_triosim(card, cpu):
+    """(c) simulate_step at every TRIOSIM_REF plan: done, step time and
+    epochs against the constant, the whole final state against the port's
+    CPU run (from ``cpu``); the ratio to analytic_step_us, the entry
+    point's wall time, a warm run's, and kernels an epoch (16 GPUs and
+    the first plan)."""
+    import torch
+    from repro_torch.sims import opgraph, triosim as tt
+
+    rec = {}
+    for key, want in TRIOSIM_REF.items():
+        arch, layers, batch, seq, micro, dp, tp, pp = key
+        cfg = _trio_cfg(arch, layers)
+        name = _trio_name(key)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = tt.simulate_step(cfg, batch, seq, dp, tp, pp, micro,
+                             return_state=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = (r["done"], r["step_us"], r["epochs"])
+        if got != want:
+            raise AssertionError(f"triosim {name}: (done, step_us, epochs) "
+                                 f"{got} != TRIOSIM_REF {want}")
+        sim = r["sim"]
+        _, run_s = _timed_run(sim, sim.init_state(), 5e6)
+        ref = cpu.get(name)
+        cpu_s = ref["seconds"]
+        bad = _state_diff(r["state"], ref["state"])
+        if bad:
+            raise AssertionError(f"triosim {name}: card and CPU states "
+                                 f"differ at {bad}")
+        a = opgraph.analytic_step_us(cfg, batch, seq, dp, tp, pp, micro)
+        row = dict(n_gpus=dp * tp * pp, step_us=r["step_us"],
+                   epochs=r["epochs"], ratio=r["step_us"] / a,
+                   analytic_us=a, entry_s=wall, run_s=run_s, cpu_s=cpu_s,
+                   ports=sim.kinds[1].n_ports)
+        if dp * tp * pp == 16 or not rec:
+            blk = _profile_block(sim, sim.init_state(), r["step_us"] / 4)
+            row["kernels_per_epoch"] = blk["kernels"] / sim.super_epoch
+            row["busy_share"] = blk["busy_us"] / blk["span_us"]
+        rec[name] = row
+        log(f"[{card}] triosim {name} ({row['n_gpus']} GPUs, a network "
+            f"kind of {row['ports']} ports): step {r['step_us']:.0f} us in "
+            f"{r['epochs']} epochs, {row['ratio']:.4f}x analytic; "
+            f"simulate_step {wall:.3f} s, a warm run {run_s:.3f} s"
+            + (f", {row['kernels_per_epoch']:.1f} kernels an epoch, "
+               f"profiled busy share of a block {row['busy_share']:.3f}"
+               if "kernels_per_epoch" in row else "")
+            + f"; TRIOSIM_REF matched, the state equals the CPU run's "
+            f"({cpu_s:.2f} s)")
+    return rec
+
+
+def check_xlat(card):
+    """(d) run_translation_study: the two-page chain and the page fault's
+    Fig. 6b backtrace, then 1024 seeded loads against XLAT_REF."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from repro_torch.sims import xlat as tx
+    from repro_torch.sims.components import PAGE
+
+    chain = tx.run_translation_study(list(XLAT_CHAIN))
+    if chain != XLAT_REF["chain"]:
+        raise AssertionError(f"xlat chain {chain} != XLAT_REF "
+                             f"{XLAT_REF['chain']}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            tx.run_translation_study([8, (1 << 12) * PAGE], max_vpn=1 << 10)
+        except tx.PageFault:
+            pass
+        else:
+            raise AssertionError("xlat: an unmapped page raised no "
+                                 "PageFault")
+    trace = buf.getvalue()
+    missing = [f for f in XLAT_FRAGMENTS if f not in trace]
+    if missing:
+        raise AssertionError(f"xlat backtrace lacks {missing}: {trace!r}")
+    # each task level prints the chain as it unwinds: show the deepest
+    log("xlat page fault, enhanced backtrace:\n"
+        + "Panic" + trace.split("Panic")[1].rstrip())
+    n, pages = XLAT_SEEDED["n"], XLAT_SEEDED["pages"]
+    rng = np.random.default_rng(XLAT_SEEDED["seed"])
+    addrs = (rng.integers(0, pages, n) * PAGE
+             + rng.integers(0, PAGE // 8, n) * 8).tolist()
+    t = time.perf_counter()
+    r = tx.run_translation_study(addrs, until=XLAT_SEEDED["until"],
+                                 return_state=True)
+    wall = time.perf_counter() - t
+    got = {k: r[k] for k in XLAT_REF["chain"]}
+    got["epochs"] = int(r["state"].stats.epochs)
+    if got != XLAT_REF["seeded"]:
+        raise AssertionError(f"xlat seeded {got} != XLAT_REF "
+                             f"{XLAT_REF['seeded']}")
+    sim = r["sim"]
+    blk = _profile_block(sim, sim.init_state(), got["virtual_time"] / 2)
+    K = sim.super_epoch
+    rec = dict(chain=chain, seeded=got, entry_s=wall,
+               epochs_per_s=K / (blk["b2b_wall_us"] * 1e-6),
+               kernels_per_epoch=blk["kernels"] / K,
+               busy_share=blk["busy_us"] / blk["span_us"])
+    log(f"[{card}] xlat: chain and backtrace as the reference's test; "
+        f"{n} seeded loads: {got['epochs']} epochs, {got['walks']} walks, "
+        f"XLAT_REF matched; run_translation_study {wall:.3f} s (capture "
+        f"included); blocks back to back {rec['epochs_per_s']:.0f} "
+        f"epochs/s, {rec['kernels_per_epoch']:.1f} kernels an epoch, "
+        f"profiled busy share of a block {rec['busy_share']:.3f}")
+    return rec
+
+
+def check_tracing(card, rows_off, sweep, out_dir):
+    """(e) Monitor.run_monitored on memsys with the HTTP endpoint polled
+    by a thread (the final stats against MONITOR_REF), the engine trace
+    into a DBTracer and its Daisen HTML, then (b)'s sweep again with a
+    JsonlSink on the bus (rows identical to (b)'s) and its Chrome trace."""
+    import threading
+    import urllib.request
+
+    import torch
+    from repro_torch import dse
+    from repro_torch.core.daisen import export_db
+    from repro_torch.core.monitor import Monitor
+    from repro_torch.core.tracers import DBTracer, flush_engine_trace
+    from repro_torch.core.tracing import TracingDomain
+    from repro_torch.obs import (BUS, JsonlSink, export_chrome_trace,
+                                 read_jsonl)
+    from repro_torch.sims import memsys as tm
+
+    run = MONITOR_RUN
+    sim, st = tm.build(n_cores=run["n_cores"], pattern=run["pattern"],
+                       n_reqs=run["n_reqs"],
+                       sample_period=run["sample_period"])
+    dom = TracingDomain("rtm")
+    db = dom.attach(DBTracer(str(out_dir / "monitor.db")))
+    mon = Monitor(sim, st, domain=dom, http_port=0)
+    seen = {"/status": 0, "/bottlenecks": 0}
+    epochs, errors, stop = set(), [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            for path in seen:
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{mon.http_port}{path}",
+                            timeout=5) as resp:
+                        body = json.loads(resp.read().decode())
+                except (OSError, ValueError) as e:
+                    errors.append(f"{path}: {e!r}")
+                    return
+                if path == "/status":
+                    epochs.add(body["epochs"])
+                elif not isinstance(body, list):
+                    errors.append(f"{path}: {body!r}")
+                    return
+                seen[path] += 1
+            time.sleep(0.01)
+
+    th = threading.Thread(target=poll, daemon=True)
+    th.start()
+    try:
+        t = time.perf_counter()
+        final, hung = mon.run_monitored(until=run["until"],
+                                        chunk=run["chunk"], verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        stop.set()
+        th.join(timeout=10)
+        mon.shutdown()
+    if errors or th.is_alive() or not all(seen.values()):
+        raise AssertionError(f"monitor HTTP polling: {seen}, errors "
+                             f"{errors}, poller alive {th.is_alive()}")
+    got = dict(tm.finish_stats(sim, final),
+               progress_ticks=int(final.stats.progress_ticks),
+               sample_idx=int(final.sample_idx),
+               buf_samples_sum=int(final.buf_samples.sum()),
+               chunks=len(mon.history), hung=hung)
+    if got != MONITOR_REF:
+        raise AssertionError(f"monitored memsys {got} != MONITOR_REF "
+                             f"{MONITOR_REF}")
+    log(f"[{card}] monitored memsys {run['n_cores']} cores x "
+        f"{run['n_reqs']} requests: {got['chunks']} chunks in {wall:.3f} s, "
+        f"MONITOR_REF matched; a poller got {seen} well-formed JSON "
+        f"answers ({len(epochs)} distinct snapshots)")
+    flush_engine_trace(sim, final, db)
+    n_busy = len(db.fetch_metrics("busy_ticks"))
+    n_level = len(db.fetch_metrics("buf_level"))
+    n_tasks = len(db.fetch_tasks())
+    html = export_db(db, str(out_dir / "monitor.html"), title="memsys")
+    db.close()
+    if (n_busy, n_level, n_tasks) != (
+            sim.n_comp, got["sample_idx"] * sim.n_ports_g, got["chunks"]):
+        raise AssertionError(f"trace DB: {n_busy} busy rows, {n_level} "
+                             f"buffer levels, {n_tasks} tasks")
+    log(f"trace DB: {n_busy} busy counters, {n_level} buffer levels, "
+        f"{n_tasks} monitor tasks; Daisen HTML {Path(html).stat().st_size} "
+        f"bytes")
+
+    build_fn, spec = sweep
+    jl = out_dir / "sweep.jsonl"
+    sink = BUS.attach(JsonlSink(str(jl)))
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rows_on = dse.run_sweep(build_fn, spec, until=ONIRA_UNTIL,
+                                extract=_onira_extract)
+        torch.cuda.synchronize()
+        wall_on = time.perf_counter() - t
+    finally:
+        BUS.detach(sink)
+        sink.close()
+    if rows_on != rows_off:
+        raise AssertionError("onira sweep-256: rows differ with telemetry "
+                             "on")
+    events = read_jsonl(str(jl))
+    with open(export_chrome_trace(str(jl), str(out_dir / "trace.json"))) \
+            as fh:
+        trace = json.load(fh)["traceEvents"]
+    tracks = {e["args"]["name"] for e in trace
+              if e["ph"] == "M" and e["name"] == "thread_name"}
+    slices = sum(e["ph"] == "X" and e["name"].startswith("round ")
+                 for e in trace)
+    if not ({"rounds", "compile", "transfer"} <= tracks and slices):
+        raise AssertionError(f"Chrome trace: tracks {tracks}, {slices} "
+                             "round slices")
+    log(f"[{card}] onira sweep-256 with a JsonlSink: {len(events)} events, "
+        f"rows identical to telemetry off, {wall_on:.3f} s; Chrome trace "
+        f"{len(trace)} records, {slices} round slices, tracks "
+        f"{sorted(tracks)}")
+    return dict(monitor=dict(wall_s=wall, polls=seen,
+                             snapshots=len(epochs), **got),
+                trace_db=dict(busy=n_busy, levels=n_level, tasks=n_tasks),
+                telemetry=dict(events=len(events), wall_s=wall_on,
+                               rows_identical=True, trace_records=len(trace),
+                               round_slices=slices))
+
+
+def check_sims():
+    """Phase 8: the remaining sims and the tracing layer on the card."""
+    card = _card()
+    t_phase = time.perf_counter()
+    rec = {"card": card}
+    out_dir = ROOT / "build" / "sims"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.iterdir():
+        f.unlink()
+    parts = rec["parts_s"] = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return out
+
+    cpu = _CpuStates(out_dir)
+    try:
+        rec["onira"] = part("onira", check_onira, card, cpu)
+        rec["onira_sweep"], rows, sweep = part("onira_sweep",
+                                               check_onira_sweep, card)
+        rec["triosim"] = part("triosim", check_triosim, card, cpu)
+    finally:
+        cpu.close()
+    rec["xlat"] = part("xlat", check_xlat, card)
+    rec["tracing"] = part("tracing", check_tracing, card, rows, sweep,
+                          out_dir)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{card}] phase 8 (sims) took {rec['phase_s']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    return rec
+
+
+# ---------------------------------------------------------------------------
 def main():
     try:
         import torch
@@ -2019,6 +2634,11 @@ def main():
         log(_card())
         print(json.dumps({"dse": check_dse()}), flush=True)
         return 0
+    if sys.argv[1:] == ["--sims"]:
+        # phase 8 alone, after the card line
+        log(_card())
+        print(json.dumps({"sims": check_sims()}), flush=True)
+        return 0
     if sys.argv[1:] == ["--models"]:
         # phase 7 alone, after phase 1 (the builds, TF32 off)
         setup()
@@ -2039,6 +2659,7 @@ def main():
     engine = check_engine()
     dse = check_dse()
     models = check_models(dev)
+    sims = check_sims()
     fa_bf16 = launches["flash_attention"] + models["launches"]["bfloat16"]
     fa_f32 = f32_launches["flash_attention"] + \
         models["launches"]["float32"]
@@ -2064,6 +2685,7 @@ def main():
     print(json.dumps({"engine": engine}))
     print(json.dumps({"dse": dse}))
     print(json.dumps({"models": models}))
+    print(json.dumps({"sims": sims}))
     print(json.dumps({"kernels": [{k: kr[k] for k in keys}
                                   for kr in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,18 @@
 """repro_torch.core — the Akita simulation engine in PyTorch, and the
-host-side task tracing.  Counterpart of ``repro.core``; the tracers, the
-monitor, the Daisen export and the PDES layer are not ported yet."""
+host-side task tracing, tracers, monitor and Daisen export (submodules
+``tracing``, ``tracers``, ``monitor``, ``daisen``).  Counterpart of
+``repro.core``; the PDES layer is not ported yet."""
 from .component import ComponentKind, KindHandle, TickResult
 from .engine import (SimBuilder, SimParams, SimState, Simulation, Stats,
                      check_not_consumed)
 from .message import (MSG_WORDS, f2i, i2f, msg_new, msg_reply, opcode,
                       payload, ready_time)
-from .ports import Ports, oh_set
+from .ports import Ports, oh_set, take
 
 __all__ = [
     "ComponentKind", "KindHandle", "TickResult", "SimBuilder", "SimParams",
     "SimState", "Simulation", "Stats", "check_not_consumed", "Ports",
     "MSG_WORDS", "msg_new",
     "msg_reply", "opcode", "payload", "ready_time", "f2i", "i2f", "oh_set",
+    "take",
 ]

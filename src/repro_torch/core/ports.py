@@ -49,6 +49,16 @@ def oh_set(arr, ix, val, when=True):
     return torch.where(oh, const(val, arr.dtype), arr)
 
 
+def take(arr, ix):
+    """``arr[ix]`` for a *traced* index, with the reference's gather
+    semantics: a negative index counts from the end, and an index still out
+    of range is clamped to the nearest row.  (A torch gather raises there,
+    on the card by a device assert that ends the process.)"""
+    n = arr.shape[0]
+    ix = torch.where(ix < 0, ix + n, ix).clamp(0, n - 1)
+    return arr[ix]
+
+
 def _set_row(arr, p: int, row):
     """``arr`` with row ``p`` (a static index) replaced by ``row``."""
     row = row.unsqueeze(0)

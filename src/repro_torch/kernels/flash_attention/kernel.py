@@ -10,6 +10,13 @@ fallback from one to the other.  ``launches`` counts the calls that
 launched, so a run can show that its prefill went through the kernels;
 ``launches_by_dtype`` splits the same count by the dtype (the kernel) that
 launched.
+
+The kernels are built for the head dims in ``HEAD_DIMS``; any other head
+dim up to the largest runs on the next one up (:func:`pad_head_dim`): q, k
+and v are zero-padded along the head dim, the scale stays
+``1/sqrt(hd)`` of the unpadded dim, and the output is sliced back.  Zero
+columns add nothing to q·k, so the scores, the softcap and the softmax
+are unchanged, and the padded columns of v come out as zeros.
 """
 from __future__ import annotations
 
@@ -32,6 +39,26 @@ HEAD_DIMS = (16, 32, 64, 80, 128)   # 80: hubert-xlarge
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGTYPES = [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _P]
+
+
+def padded_head_dim(hd: int) -> int:
+    """The smallest head dim in ``HEAD_DIMS`` that holds ``hd``."""
+    for d in HEAD_DIMS:
+        if 1 <= hd <= d:
+            return d
+    raise ValueError(f"head dim {hd}: the flash-attention kernels take 1 to "
+                     f"{HEAD_DIMS[-1]}")
+
+
+def pad_head_dim(q, k, v):
+    """q, k and v zero-padded along their last (head) dim to
+    :func:`padded_head_dim`; tensors already at a built head dim are
+    returned as they are."""
+    hd = q.shape[-1]
+    pad = padded_head_dim(hd) - hd
+    if not pad:
+        return q, k, v
+    return tuple(torch.nn.functional.pad(x, (0, pad)) for x in (q, k, v))
 
 
 def entry(dtype: torch.dtype) -> tuple[str, str]:
@@ -67,8 +94,7 @@ def _check(q, k, v):
     if Bk != B or hdk != hd or KV == 0 or H % KV:
         raise ValueError(f"batch/head mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    padded_head_dim(hd)
     if Sq < 1 or Sk < 1:
         raise ValueError("empty sequence")
     if not (q.stride(-1) == k.stride(-1) == v.stride(-1) == 1):
@@ -80,20 +106,23 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=None):
 
     Self-attention positions (iota).  ``window`` > 0 is a sliding window,
     ``cap`` > 0 a tanh logit softcap; ``scale`` defaults to 1/sqrt(hd).
+    A head dim outside ``HEAD_DIMS`` runs padded (:func:`pad_head_dim`).
     """
     global launches
     _check(q, k, v)
-    B, Sq, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
+    hd = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    q, k, v = pad_head_dim(q, k, v)
+    B, Sq, H, hdp = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    out = torch.empty((B, Sq, H, hdp), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), B, Sq, Sk, H, KV, hd,
+                      out.data_ptr(), B, Sq, Sk, H, KV, hdp,
                       *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                       *out.stride()[:3], int(bool(causal)), int(window),
                       float(scale), float(cap), stream)
     _build.check(rc, "flash_attention")
     launches += 1
     launches_by_dtype[str(q.dtype).removeprefix("torch.")] += 1
-    return out
+    return out[..., :hd]

@@ -1,8 +1,6 @@
 """The campaign telemetry bus: ``emit(kind, **fields)`` + a metrics
-registry, with pluggable sinks.  A copy of ``repro.obs.bus``; the JSONL
-and callback sinks, the dashboard, the bridge and the Perfetto export are
-not ported yet, so :func:`capture` uses the :class:`MemorySink` below (a
-copy of ``repro.obs.sinks.MemorySink``).
+registry, with pluggable sinks.  A copy of ``repro.obs.bus``;
+:func:`capture` takes its sink from :mod:`repro_torch.obs.sinks`.
 
 Akita's tracing story (paper §3.4–3.6) covers a *single engine run*:
 ``start_task``/``end_task`` annotations flow to tracers, AkitaRTM watches
@@ -237,30 +235,12 @@ BUS = Bus()
 emit = BUS.emit
 
 
-class MemorySink:
-    """Buffers every event in order (tests + ad-hoc analysis)."""
-
-    def __init__(self):
-        self.events: list[dict] = []
-
-    def on_event(self, ev: dict) -> None:
-        self.events.append(ev)
-
-    def close(self) -> None:
-        pass
-
-    def kinds(self) -> list[str]:
-        return [e["kind"] for e in self.events]
-
-    def of(self, *kinds: str) -> list[dict]:
-        want = set(kinds)
-        return [e for e in self.events if e["kind"] in want]
-
-
 def capture(bus: Bus | None = None):
     """Context manager: attach a fresh in-memory sink for the block and
     return it (``with capture() as sink: ... sink.events``)."""
     b = bus if bus is not None else BUS
+
+    from .sinks import MemorySink
 
     @contextlib.contextmanager
     def _ctx():

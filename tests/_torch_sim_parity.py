@@ -1,10 +1,14 @@
 """Shared pieces of the engine parity tests: the same small component
-kinds written once for each package, and an exact comparison of two
-states, leaf by leaf, f32 compared by its bits and dtypes included."""
+kinds written once for each package, an exact comparison of two states,
+leaf by leaf, f32 compared by its bits and dtypes included, and
+``chip_smoke.py``'s reference constants."""
 from __future__ import annotations
 
 import dataclasses
+import functools
+import importlib.util
 import types
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +32,17 @@ def _leaves(tree, path=()):
             out.update(_leaves(getattr(tree, f.name), path + (f.name,)))
         return out
     return {".".join(map(str, path)): tree}
+
+
+@functools.cache
+def chip_smoke():
+    """The repo's ``chip_smoke.py`` as a module, for its reference
+    constants (importing it needs no card)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def as_np(x):

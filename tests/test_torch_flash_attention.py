@@ -200,3 +200,57 @@ def test_head_dim_80_is_built_by_both_kernels():
         src = (_build.CSRC / f"{fa_kernel.entry(dtype)[0]}.cu").read_text()
         assert "case 80:" in src and "launch_hd<80>" in src
     assert "HD / 16 : 8" in (_build.CSRC / "flash_attention.cu").read_text()
+
+
+# head dims the kernels are not built for run zero-padded to the next one
+PAD_HDS = (4, 12, 24, 40, 100)
+PAD_MASKS = [  # causal, window, cap
+    (True, 0, 0.0), (False, 0, 0.0), (True, 24, 0.0), (False, 0, 30.0),
+    (True, 16, 50.0)]
+
+
+@pytest.mark.parametrize("hd", PAD_HDS)
+@pytest.mark.parametrize("causal,window,cap", PAD_MASKS)
+def test_padded_head_dim_gives_the_unpadded_result(hd, causal, window,
+                                                   cap):
+    """The launcher's padding, then the plain version at the unpadded
+    scale, sliced back: within 1e-6 of the plain version unpadded, and
+    the padded columns of the output are zeros."""
+    (_, (q, k, v)) = _both(_mk(2, 80, 4, 2, hd, seed=hd), "float32")
+    qp, kp, vp = fa_kernel.pad_head_dim(q, k, v)
+    hdp = fa_kernel.padded_head_dim(hd)
+    assert hdp in fa_kernel.HEAD_DIMS and hdp > hd
+    assert qp.shape[-1] == kp.shape[-1] == vp.shape[-1] == hdp
+    assert torch.equal(qp[..., :hd], q) and not qp[..., hd:].any()
+    out = flash_attention_ref(qp, kp, vp, causal=causal, window=window,
+                              cap=cap, scale=1.0 / np.sqrt(hd))
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window,
+                              cap=cap)
+    assert float((out[..., :hd] - ref).abs().max()) <= 1e-6
+    assert not out[..., hd:].any()
+
+
+def test_every_head_dim_up_to_128_maps_to_a_built_one():
+    from repro_torch.kernels import _build
+    srcs = [(_build.CSRC / f"{fa_kernel.entry(d)[0]}.cu").read_text()
+            for d in fa_kernel.DTYPES]
+    for d in fa_kernel.HEAD_DIMS:
+        assert all(f"case {d}:" in src and f"launch_hd<{d}>" in src
+                   for src in srcs), d
+    for hd in range(1, 129):
+        hdp = fa_kernel.padded_head_dim(hd)
+        assert hdp in fa_kernel.HEAD_DIMS and hdp >= hd
+        assert [d for d in fa_kernel.HEAD_DIMS if hd <= d][0] == hdp
+    (_, (q, k, v)) = _both(_mk(1, 8, 2, 1, 64), "float32")
+    assert fa_kernel.pad_head_dim(q, k, v)[0] is q     # built: no copy
+
+
+def test_head_dim_above_128_raises():
+    for hd in (129, 256):
+        with pytest.raises(ValueError, match="take 1 to 128"):
+            fa_kernel.padded_head_dim(hd)
+        (_, (q, k, v)) = _both(_mk(1, 8, 2, 1, hd), "float32")
+        with pytest.raises(ValueError, match="take 1 to 128"):
+            fa_kernel.pad_head_dim(q, k, v)
+    with pytest.raises(ValueError):
+        fa_kernel.padded_head_dim(0)

@@ -31,7 +31,10 @@ def test_importing_every_module_loads_no_jax_or_repro():
               "configs.deepseek_v2_236b", "configs.gemma2_27b",
               "configs.grok_1_314b", "configs.deepseek_67b",
               "configs.phi3_medium_14b", "configs.internvl2_26b",
-              "configs.hubert_xlarge"):
+              "configs.hubert_xlarge", "sims.onira", "sims.opgraph",
+              "sims.triosim", "sims.xlat", "core.tracers", "core.daisen",
+              "core.monitor", "obs.sinks", "obs.bridge", "obs.perfetto",
+              "obs.dashboard"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
