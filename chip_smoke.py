@@ -89,12 +89,29 @@ Phases (each raises on failure, and the run then exits non-zero):
      (MONITOR_REF), the engine trace into a DBTracer and Daisen HTML
      under build/sims/, and (b)'s sweep again with a JsonlSink on the bus
      (identical rows) and its Chrome trace.
-Then the engine's, the DSE path's, the models' and the sims' JSON
-records, the kernels' JSON record (the line before the last; the flash
-records' launches add phase 7's model runs to phase 3's), and ``{"ok":
-true, "device": {...}}`` as the last line.  ``python3 chip_smoke.py
---engine`` runs phase 5 alone, ``--dse`` phase 6, ``--models`` phases 1
-and 7, ``--sims`` phase 8.  Imports nothing of JAX.
+  9. search: closed-loop search, the lane multiplexer and checkpoints
+     (``repro_torch.dse.search``, ``dse.mux``, ``ckpt``), on the lanes of
+     phase 6 (no hand-written kernel either: the search, the BO surrogate,
+     the routing and the checkpoint I/O are host code).  (a)
+     benchmarks/search_convergence.py's exhaustive 192-point sweep and its
+     seeded successive halving at memsys 8 cores x 24 requests against
+     SEARCH_REF, a rung checkpoint after round 2 (``save_search``, under
+     build/search/) resumed by ``load_search`` + ``adopt_handles`` to the
+     identical rows, best and budget, and a repeat search that captures
+     nothing; (b) the same search at 64 cores x 256 requests over 27
+     points against SEARCH64_REF; (c) BatchBO (qei, ts) and RandomSearch
+     against BO_REF; (d) a LaneMux of (a)'s grid and 32 points of phase
+     6's 16-core build, each job's rows equal to its solo run_sweep, no
+     capture over the solo runs; (e) CheckpointManager: async saves of
+     (b)'s 64-core state and a small bf16/int64/non-finite tree, keep=2
+     over 3 saves, restored onto the card bit for bit.
+Then the engine's, the DSE path's, the models', the sims' and the
+search's JSON records, the kernels' JSON record (the line before the
+last; the flash records' launches add phase 7's model runs to phase
+3's), and ``{"ok": true, "device": {...}}`` as the last line.  ``python3
+chip_smoke.py --engine`` runs phase 5 alone, ``--dse`` phase 6,
+``--models`` phases 1 and 7, ``--sims`` phase 8, ``--search`` phase 9.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -2607,6 +2624,443 @@ def check_sims():
 
 
 # ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+# (a) benchmarks/search_convergence.py's grid and ladder: 8 crossbar
+# latencies x 6 L1 boosts x 4 DRAM periods = 192 points at memsys 8 cores x
+# 24 requests (mixed); MAX_H 5600, 5 rungs (MIN_H = MAX_H / 3**4), eta 3,
+# seed 0, the objective est_finish, warm promotions; a checkpoint after
+# round 2.  (b) the same search at full width: memsys 64 cores x 256
+# requests (the R9 Nano's 64 compute units; MEMSYS64's build) over 3 x 3 x 3
+# points, 4 rungs (27 -> 9 -> 3 -> 1), MAX_H 1.1x the slowest point's drain
+# time.  (c) BatchBO (qei and ts) and RandomSearch at (a)'s build, 3 rounds
+# of 8, the axes given as ranges.  The procedures below take the package
+# (``repro_torch.dse`` here), so tests/_search_refs.py runs them on the JAX
+# package to make SEARCH_REF, SEARCH64_REF and BO_REF (CHANGES.md has the
+# command).
+SEARCH_AXES = {
+    "conn_latency[-1]": [10.0, 20.0, 30.0, 40.0, 55.0, 70.0, 85.0, 100.0],
+    "kind.l1.extra_hit_rate": [0.0, 0.15, 0.3, 0.45, 0.6, 0.8],
+    "period.dram": [1.0, 2.0, 3.0, 4.0],
+}
+SEARCH_BUILD = dict(n_cores=8, pattern="mixed", n_reqs=24)
+SEARCH_MAX_H = 5600.0
+SEARCH_RUNGS = 5
+SEARCH_ETA = 3
+SEARCH_RESUME_AFTER = 2
+SEARCH_CHUNK = 256     # the ladder top of (a)'s sweep and of (d)
+SEARCH64_AXES = {"conn_latency[-1]": [10.0, 55.0, 100.0],
+                 "kind.l1.extra_hit_rate": [0.0, 0.3, 0.6],
+                 "period.dram": [1.0, 2.0, 4.0]}
+SEARCH64_BUILD = dict(n_cores=64, pattern="mixed", n_reqs=256)
+SEARCH64_RUNGS = 4
+# (c)'s DRAM period is an int range: at some fractional periods both
+# packages' engines stall (ROADMAP queue 3, reference limit 2)
+BO_AXES = {"conn_latency[-1]": (10.0, 100.0),
+           "kind.l1.extra_hit_rate": (0.0, 0.8),
+           "period.dram": (1, 4)}
+BO_RUNS = ("qei", "ts", "random")
+BO_BATCH, BO_ROUNDS = 8, 3
+SEARCH_REF = {"exhaustive": {"n": 192,
+                             "optimum": 356.0,
+                             "budget": 363617.0,
+                             "drained": True,
+                             "rows_sha256": "070d5511b82991a68c3976512df78632"
+                                            "0f08cb3426eb908f5b2331442d698f37"},
+              "search": {"best": 356.0,
+                         "best_point": {"conn_latency[-1]": 10.0,
+                                        "kind.l1.extra_hit_rate": 0.8,
+                                        "period.dram": 1.0},
+                         "budget": 26595.0,
+                         "rounds": 5,
+                         "trials": 289,
+                         "rows_sha256": "b9a4240ac1d100ecf06fb83e07eb5030"
+                                        "e60568363cfe9f455855d1a9efa19ba7",
+                         "state_sha256": "5e1d1ac110f2ed159189d139e0d2258c"
+                                         "7a762306aea11706c8e526a1b2911b04"}}
+SEARCH64_REF = {"max_h": 519900.0,
+                "drains": [48900.0, 52744.0, 65562.0, 33197.0, 36240.0,
+                           47810.0, 19447.0, 21096.0, 27478.0,
+                           244740.0, 244743.0, 255491.0, 171768.0,
+                           169647.0, 169487.0, 98266.0, 95857.0,
+                           95973.0, 440580.0, 444424.0, 472576.0,
+                           308609.0, 306806.0, 312864.0, 175919.0,
+                           172922.0, 177854.0],
+                "exhaustive": {"n": 27, "optimum": 19447.0,
+                               "budget": 4711000.0},
+                "search": {"best": 19447.0,
+                           "best_point": {"conn_latency[-1]": 10.0,
+                                          "kind.l1.extra_hit_rate": 0.6,
+                                          "period.dram": 1.0},
+                           "budget": 690776.0,
+                           "rounds": 4,
+                           "trials": 40,
+                           "rows_sha256": "d6bacb3973ea1c2390093299c3c1f5eb"
+                                          "a617e1f62e711cdbac71c80d23e224c6",
+                           "state_sha256": "a63b476c1f551b756544ad2e38a23806"
+                                           "bfe086953f0b39dec31d4a2d164ef5ad"}}
+BO_REF = {"qei": {"best": 380.0,
+                  "best_point": {"conn_latency[-1]": 10.92853528916319,
+                                 "kind.l1.extra_hit_rate": 0.7933076486521994,
+                                 "period.dram": 1},
+                  "budget": 26154.0,
+                  "rounds": 3,
+                  "trials": 24,
+                  "rows_sha256": "8393de51543c5f5d892b8ca8492bc200"
+                                 "0d03970c199872457f34edfa42a211c7",
+                  "state_sha256": "77b19c714ad9f9d726add3ff456199ee"
+                                  "37d0ff1155d580eaa7a8fb116095d419"},
+          "ts": {"best": 409.0,
+                 "best_point": {"conn_latency[-1]": 10.136273396418545,
+                                "kind.l1.extra_hit_rate": 0.7152542471246658,
+                                "period.dram": 1},
+                 "budget": 32391.0,
+                 "rounds": 3,
+                 "trials": 24,
+                 "rows_sha256": "4798c71b1b1a0a37a61ad41ed2f6a680"
+                                "846ef0f1313f553a21e2622b0944ef65",
+                 "state_sha256": "3e60eb92e123612f1a72e92da9e37317"
+                                 "6325a456c23b9f93b78054c33ad1668e"},
+          "random": {"best": 380.0,
+                     "best_point": {"conn_latency[-1]": 10.92853528916319,
+                                    "kind.l1.extra_hit_rate": 0.7933076486521994,
+                                    "period.dram": 1},
+                     "budget": 37987.0,
+                     "rounds": 3,
+                     "trials": 24,
+                     "rows_sha256": "10c5d8b47fc495e3f40ab9db2dd233ab"
+                                    "521203e99f3f56a918ace589f9de6284",
+                     "state_sha256": "0cb80cb6d3f105d51e7e520526241f2d"
+                                     "f2a74daa3ee712ed6c9ddd8d23351556"}}
+
+
+def digest(obj):
+    """sha256 of a text, or of an object's canonical JSON."""
+    import hashlib
+    text = obj if isinstance(obj, str) else json.dumps(
+        obj, sort_keys=True, separators=(",", ":"))
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def search_extract(state):
+    """benchmarks/search_convergence.py's extractor over ``state``'s
+    requests: virtual time, requests left, and ``est_finish``, the
+    completion time estimated from the requests done."""
+    total = int(state.comp_state["core"]["remaining"].sum())
+
+    def extract(sim, s):
+        rem = int(s.comp_state["core"]["remaining"].sum())
+        vt = float(s.time)
+        return {"virtual_time": vt, "remaining": rem,
+                "est_finish": vt * total / max(total - rem, 1)}
+    return extract
+
+
+def halving(dse, pool, max_h, rungs, state=None):
+    """The seeded warm successive halving of phase 9 (a) and (b)."""
+    return dse.SuccessiveHalving(pool, "est_finish", max_horizon=max_h,
+                                 rungs=rungs, eta=SEARCH_ETA, seed=0,
+                                 state=state)
+
+
+def bo_driver(dse, which):
+    """Phase 9 (c)'s drivers: BatchBO by acquisition, or RandomSearch."""
+    kw = dict(horizon=SEARCH_MAX_H, batch=BO_BATCH, rounds=BO_ROUNDS, seed=0)
+    if which == "random":
+        return dse.RandomSearch(BO_AXES, "est_finish", **kw)
+    return dse.BatchBO(BO_AXES, "est_finish", acquisition=which, **kw)
+
+
+def search_summary(res, axes):
+    """What SEARCH_REF, SEARCH64_REF and BO_REF hold of a search."""
+    return dict(best=res.best["est_finish"],
+                best_point={a: res.best[a] for a in axes},
+                budget=res.budget, rounds=res.rounds, trials=len(res.rows),
+                rows_sha256=digest(res.rows),
+                state_sha256=digest(res.state.to_json()))
+
+
+def exhaustive_summary(rows):
+    """The exhaustive sweep's optimum and simulated-cycle budget."""
+    return dict(n=len(rows), optimum=min(r["est_finish"] for r in rows),
+                budget=sum(r["virtual_time"] for r in rows),
+                drained=all(r["remaining"] == 0 for r in rows),
+                rows_sha256=digest(rows))
+
+
+def _held(name, got, ref):
+    """``got`` must equal the JAX package's ``ref``; else name both."""
+    if got != ref:
+        raise AssertionError(f"{name}: {got!r} != the JAX package's "
+                             f"{ref!r}")
+
+
+def _search_timed(dse, runner, fn):
+    """Run ``fn`` on the card, timed on the host's clock to a device sync;
+    also the blocks it captured."""
+    import torch
+    tc = runner.trace_count
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t, runner.trace_count - tc
+
+
+def _dir_bytes(path):
+    return sum(p.stat().st_size for p in Path(path).rglob("*")
+               if p.is_file())
+
+
+def _search_record(res, wall, caps, exhaustive_budget):
+    return dict(wall_s=wall, rounds=res.rounds, trials=len(res.rows),
+                captures=caps, budget=res.budget,
+                budget_share=res.budget / exhaustive_budget,
+                best=res.best["est_finish"], points_per_s=len(res.rows) / wall)
+
+
+def check_search_a(card, out_dir):
+    """(a) the exhaustive 192-point sweep and the seeded search against
+    SEARCH_REF; a checkpoint after round 2 resumed to the identical rows,
+    best and budget; a repeat search that captures nothing."""
+    from repro_torch import dse
+    from repro_torch.sims import memsys as tm
+    bf = dse.memoize_build(lambda: tm.build(**SEARCH_BUILD))
+    sim, st = bf()
+    runner = dse.runner_for(sim)
+    ex = search_extract(st)
+    pool = dse.SweepSpec.grid(SEARCH_AXES)
+    full, wall, caps = _search_timed(dse, runner, lambda: dse.run_sweep(
+        bf, pool, until=SEARCH_MAX_H, extract=ex, chunk=SEARCH_CHUNK))
+    exh = exhaustive_summary(full)
+    _held("(a) exhaustive sweep", exh, SEARCH_REF["exhaustive"])
+    rec = dict(exhaustive=dict(points=len(full), wall_s=wall, captures=caps,
+                               budget=exh["budget"], optimum=exh["optimum"],
+                               points_per_s=len(full) / wall))
+    saves = []
+
+    def snapshot(drv):
+        if drv.state.round == SEARCH_RESUME_AFTER:
+            t = time.perf_counter()
+            saves.append(dse.save_search(str(out_dir / "round2"), drv))
+            saves.append(time.perf_counter() - t)
+
+    res, wall, caps = _search_timed(dse, runner, lambda: dse.run_search(
+        bf, halving(dse, pool, SEARCH_MAX_H, SEARCH_RUNGS), extract=ex,
+        callback=snapshot))
+    _held("(a) search", search_summary(res, SEARCH_AXES),
+          SEARCH_REF["search"])
+    rec["search"] = _search_record(res, wall - saves[1], caps, exh["budget"])
+    t = time.perf_counter()
+    state, handles = dse.load_search(str(out_dir / "round2"), st)
+    load_s = time.perf_counter() - t
+    if any(x.device != st.time.device for h in handles.values()
+           for x in dse.search.ref_leaves(h.state)):
+        raise AssertionError("(a) load_search put a handle off the card")
+    drv = halving(dse, pool, SEARCH_MAX_H, SEARCH_RUNGS, state=state)
+    drv.adopt_handles(handles)
+    resumed, wall, caps = _search_timed(dse, runner, lambda: dse.run_search(
+        bf, drv, extract=ex))
+    got = (resumed.rows == res.rows, resumed.best == res.best,
+           resumed.budget == res.budget,
+           resumed.rounds == res.rounds - SEARCH_RESUME_AFTER)
+    if not all(got):
+        raise AssertionError(f"(a) resumed after round 2: rows, best, "
+                             f"budget, rounds equal {got}")
+    rec["resume"] = dict(after_round=SEARCH_RESUME_AFTER,
+                         handles=len(handles), ckpt_bytes=_dir_bytes(
+                             saves[0]), save_s=saves[1], load_s=load_s,
+                         wall_s=wall, captures=caps)
+    again, wall, caps = _search_timed(dse, runner, lambda: dse.run_search(
+        bf, halving(dse, pool, SEARCH_MAX_H, SEARCH_RUNGS), extract=ex))
+    if caps or again.rows != res.rows:
+        raise AssertionError(f"(a) the repeat search captured {caps} "
+                             "blocks or changed its rows")
+    rec["repeat"] = dict(wall_s=wall, captures=caps)
+    log(f"[{card}] (a) exhaustive {len(full)} points in "
+        f"{rec['exhaustive']['wall_s']:.2f} s ({rec['exhaustive']['captures']}"
+        f" captures), optimum {exh['optimum']}, {exh['budget']} cycles; "
+        f"search {res.rounds} rounds, {len(res.rows)} trials in "
+        f"{rec['search']['wall_s']:.2f} s, best {res.best['est_finish']}, "
+        f"{res.budget} cycles ({100 * rec['search']['budget_share']:.2f}% "
+        f"of exhaustive): SEARCH_REF matched; resumed after round 2 "
+        f"({len(handles)} handles, {rec['resume']['ckpt_bytes']} bytes) "
+        f"identical; repeat {rec['repeat']['wall_s']:.2f} s, 0 captures")
+    return rec, (bf, sim, st, ex, pool, full)
+
+
+def check_search_b(card):
+    """(b) the same search at 64 cores x 256 requests against
+    SEARCH64_REF; returns the rung-end state promoted into the last rung
+    (the state (e) saves)."""
+    from repro_torch import dse
+    from repro_torch.sims import memsys as tm
+    bf = dse.memoize_build(lambda: tm.build(**SEARCH64_BUILD))
+    sim, st = bf()
+    runner = dse.runner_for(sim)
+    pool = list(dse.SweepSpec.grid(SEARCH64_AXES))
+    last = {}
+    res, wall, caps = _search_timed(dse, runner, lambda: dse.run_search(
+        bf, halving(dse, pool, SEARCH64_REF["max_h"], SEARCH64_RUNGS),
+        extract=search_extract(st),
+        callback=lambda d: last.update(d._handle_store)))
+    _held("(b) search at 64 cores", search_summary(res, SEARCH64_AXES),
+          SEARCH64_REF["search"])
+    ref = SEARCH64_REF["exhaustive"]
+    rec = _search_record(res, wall, caps, ref["budget"])
+    rec.update(points=len(pool), max_h=SEARCH64_REF["max_h"],
+               exhaustive_budget=ref["budget"], optimum=ref["optimum"])
+    log(f"[{card}] (b) 64 cores x 256 requests: {res.rounds} rounds, "
+        f"{len(res.rows)} trials in {wall:.2f} s ({caps} captures), best "
+        f"{res.best['est_finish']} (the grid's optimum {ref['optimum']}), "
+        f"{res.budget} cycles = {100 * rec['budget_share']:.2f}% of the "
+        f"exhaustive {ref['budget']}: SEARCH64_REF matched")
+    state = list(last.values())[-1].state
+    return rec, state
+
+
+def check_search_c(card, a):
+    """(c) BatchBO (qei, ts) and RandomSearch at (a)'s build, against
+    BO_REF."""
+    from repro_torch import dse
+    bf, sim, st, ex, *_ = a
+    runner = dse.runner_for(sim)
+    rec = {}
+    for which in BO_RUNS:
+        res, wall, caps = _search_timed(dse, runner, lambda: dse.run_search(
+            bf, bo_driver(dse, which), extract=ex))
+        _held(f"(c) {which}", search_summary(res, BO_AXES), BO_REF[which])
+        rec[which] = dict(wall_s=wall, rounds=res.rounds,
+                          trials=len(res.rows), captures=caps,
+                          budget=res.budget, best=res.best["est_finish"])
+        log(f"[{card}] (c) {which}: {res.rounds} rounds of {BO_BATCH} in "
+            f"{wall:.2f} s ({caps} captures), best {res.best['est_finish']}"
+            f": BO_REF matched")
+    return rec
+
+
+def check_search_d(card, a):
+    """(d) LaneMux: (a)'s grid on the 8-core build and phase 6's 16-core
+    build over 32 of its points, each job's rows equal to its own solo
+    run_sweep ((a)'s exhaustive sweep for the first), with no capture
+    over the solo runs."""
+    from repro_torch import dse
+    from repro_torch.sims import memsys as tm
+    bf, sim, st, ex, pool, solo_a = a        # (a)'s exhaustive sweep
+    sim16, st16 = tm.build(n_cores=16, pattern="mixed", n_reqs=96)
+    bf16 = dse.memoize_build(lambda: (sim16, st16))
+    spec16 = dse.SweepSpec.explicit(_dse_points(256)[::8])
+    u16 = _dse_untils(256, MEMSYS_REF["mixed"]["horizon"])[::8]
+    runners = (dse.runner_for(sim), dse.runner_for(sim16))
+    chunk = SEARCH_CHUNK
+    solo_b, wall_b, _ = _search_timed(dse, runners[1], lambda: dse.run_sweep(
+        bf16, spec16, until=u16, chunk=chunk))
+    tc = [r.trace_count for r in runners]
+    mux = dse.LaneMux()
+    mux.submit("search192", bf, pool, SEARCH_MAX_H, extract=ex)
+    mux.submit("sweep32", bf16, spec16, u16)
+    got, wall, _ = _search_timed(dse, runners[0],
+                                 lambda: mux.run(chunk=chunk))
+    caps = sum(r.trace_count for r in runners) - sum(tc)
+    if got["search192"] != solo_a or got["sweep32"] != solo_b:
+        raise AssertionError("(d) a multiplexed job's rows differ from its "
+                             "solo run_sweep")
+    if caps:
+        raise AssertionError(f"(d) the mux captured {caps} blocks over the "
+                             "solo runs")
+    rec = dict(points=len(pool) + len(spec16), wall_s=wall,
+               solo_b_wall_s=wall_b, captures=caps,
+               points_per_s=(len(pool) + len(spec16)) / wall)
+    log(f"[{card}] (d) mux of {len(pool)} + {len(spec16)} points in "
+        f"{wall:.2f} s (solo: (a)'s exhaustive sweep and {wall_b:.2f} s): "
+        f"rows equal to the solo runs, 0 captures over them")
+    return rec
+
+
+def check_search_e(card, state64, out_dir):
+    """(e) CheckpointManager: async saves of (b)'s 64-core state and of a
+    small tree with bf16, int64, NaN and +-inf leaves, keep=2 over 3
+    saves, restored onto the card bit for bit."""
+    import torch
+    from repro_torch.ckpt import CheckpointManager, list_steps
+    from repro_torch.core import engine
+    from repro_torch.core.engine import tree_map
+    from repro_torch.dse.search import ref_leaves
+    dev = engine.resolve_device(None)
+    on_card = tree_map(lambda x: x.to(dev), state64)
+    f = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0, 1.5],
+                     device=dev)
+    tree = {"state": ref_leaves(on_card),
+            "small": {"bf16": f.to(torch.bfloat16), "f32": f,
+                      "i64": torch.tensor([2**40 + 1, -(2**35)],
+                                          device=dev)}}
+    path = out_dir / "manager"
+    mgr = CheckpointManager(str(path), keep=2)
+    call_s = []
+    t = time.perf_counter()
+    for step in range(3):
+        c = time.perf_counter()
+        mgr.save(tree, step)
+        call_s.append(time.perf_counter() - c)
+    mgr.wait()
+    save_s = time.perf_counter() - t
+    steps = list_steps(str(path))
+    if steps != [1, 2] or mgr.latest_step() != 2:
+        raise AssertionError(f"(e) keep=2 over 3 saves left steps {steps}")
+    t = time.perf_counter()
+    back, _ = mgr.restore(tree)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    mine, want = ref_leaves(back), ref_leaves(tree)
+    for i, (x, y) in enumerate(zip(mine, want)):
+        if x.device != y.device or x.dtype != y.dtype \
+                or x.shape != y.shape:
+            raise AssertionError(f"(e) leaf {i}: {x.device} {x.dtype} "
+                                 f"{tuple(x.shape)}, saved {y.device} "
+                                 f"{y.dtype} {tuple(y.shape)}")
+        bits = lambda a: a.reshape(-1).view(torch.uint8)
+        if not torch.equal(bits(x), bits(y)):
+            raise AssertionError(f"(e) leaf {i} differs in its bits")
+    rec = dict(leaves=len(want), steps=steps,
+               ckpt_bytes=_dir_bytes(path / "step_00000002"),
+               save_call_s=call_s, save_s=save_s, restore_s=restore_s)
+    log(f"[{card}] (e) 3 async saves of {len(want)} leaves "
+        f"({rec['ckpt_bytes']} bytes each) in {save_s:.3f} s (save() "
+        f"returned in {max(call_s):.3f} s at most), restored onto the card "
+        f"in {restore_s:.3f} s bit for bit; steps kept {steps}")
+    return rec
+
+
+def check_search():
+    """Phase 9: closed-loop search, the lane multiplexer and checkpoints
+    on the card."""
+    import shutil
+    card = _card()
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "search"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    rec = {"card": card}
+    parts = rec["parts_s"] = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return out
+
+    rec["a"], a = part("a", check_search_a, card, out_dir)
+    rec["b"], state64 = part("b", check_search_b, card)
+    rec["c"] = part("c", check_search_c, card, a)
+    rec["d"] = part("d", check_search_d, card, a)
+    rec["e"] = part("e", check_search_e, card, state64, out_dir)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{card}] phase 9 (search) took {rec['phase_s']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    return rec
+
+
+# ---------------------------------------------------------------------------
 def main():
     try:
         import torch
@@ -2639,6 +3093,11 @@ def main():
         log(_card())
         print(json.dumps({"sims": check_sims()}), flush=True)
         return 0
+    if sys.argv[1:] == ["--search"]:
+        # phase 9 alone, after the card line
+        log(_card())
+        print(json.dumps({"search": check_search()}), flush=True)
+        return 0
     if sys.argv[1:] == ["--models"]:
         # phase 7 alone, after phase 1 (the builds, TF32 off)
         setup()
@@ -2660,6 +3119,7 @@ def main():
     dse = check_dse()
     models = check_models(dev)
     sims = check_sims()
+    search = check_search()
     fa_bf16 = launches["flash_attention"] + models["launches"]["bfloat16"]
     fa_f32 = f32_launches["flash_attention"] + \
         models["launches"]["float32"]
@@ -2686,6 +3146,7 @@ def main():
     print(json.dumps({"dse": dse}))
     print(json.dumps({"models": models}))
     print(json.dumps({"sims": sims}))
+    print(json.dumps({"search": search}))
     print(json.dumps({"kernels": [{k: kr[k] for k in keys}
                                   for kr in kernels]}))
     print(json.dumps({"ok": True, "device": {

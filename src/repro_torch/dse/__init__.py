@@ -12,13 +12,20 @@ Counterpart of ``repro.dse``:
     compaction and the depth-2 pipeline;
   * :mod:`~repro_torch.dse.schedule` — the chunk ladder, epoch-quantum
     policy and the one-shot chunk-size autotuner behind ``run_rounds``;
+  * :mod:`~repro_torch.dse.mux`      — ``LaneMux``: several sweep jobs'
+    lanes in shared round batches, fair round-robin refill, per-job rows;
   * :mod:`~repro_torch.dse.report`   — tidy rows, ``dominates`` /
-    Pareto-front extraction and JSON/CSV export.
+    Pareto-front extraction and JSON/CSV export;
+  * :mod:`~repro_torch.dse.search`   — closed-loop search drivers
+    (``SuccessiveHalving``, ``BatchBO``, ``RandomSearch``) that pick
+    points and horizons between rounds under a simulated-cycle budget,
+    with resumable ``SearchState`` and rung checkpoints.
 
-Not ported yet: ``mux``, ``search`` and ``cache``, and lanes sharded over
-several cards (``shard=`` above 1).
+Not ported yet: ``cache``, and lanes sharded over several cards
+(``shard=`` above 1; ROADMAP queue 1 item 10).
 """
 from .family import TopologyFamily
+from .mux import LaneMux, MuxJob
 from .report import (dominates, format_table, pareto_front, score_vector,
                      tidy, to_csv, to_json)
 from .runner import (BatchRunner, LaneStates, ResumeHandle,
@@ -27,6 +34,9 @@ from .runner import (BatchRunner, LaneStates, ResumeHandle,
                      stack_state_list, stack_states)
 from .schedule import ChunkAutotuner, ChunkSchedule, auto_schedule, \
     make_ladder
+from .search import (BatchBO, Objective, RandomSearch, SearchDriver,
+                     SearchResult, SearchState, SuccessiveHalving,
+                     horizon_ladder, load_search, run_search, save_search)
 from .sweep import (SweepSpec, apply_point, axis_error, build_param_batch,
                     split_shape, stack_params, valid_axes)
 
@@ -35,8 +45,11 @@ __all__ = [
     "build_param_batch", "stack_params", "split_shape", "TopologyFamily",
     "BatchRunner", "run_sweep", "stack_states", "stack_state_list", "lane",
     "default_extract", "extract_rows", "runner_for", "memoize_build",
-    "ResumeHandle", "LaneStates",
+    "ResumeHandle", "LaneStates", "LaneMux", "MuxJob",
     "ChunkSchedule", "ChunkAutotuner", "auto_schedule", "make_ladder",
+    "SearchDriver", "SearchState", "SearchResult", "Objective",
+    "run_search", "SuccessiveHalving", "horizon_ladder", "BatchBO",
+    "RandomSearch", "save_search", "load_search",
     "pareto_front", "dominates", "score_vector", "tidy", "to_csv",
     "to_json", "format_table",
 ]

@@ -53,7 +53,7 @@ def dominates(a: Mapping, b: Mapping,
     dominated by nothing (NaN compares false), matching
     :func:`pareto_front`'s exclusion rule.  Shared by the front
     extraction below and the search promoters
-    (``repro.dse.search``, not ported yet)."""
+    (:mod:`repro_torch.dse.search`)."""
     return _dominates_scores(score_vector(a, objectives),
                              score_vector(b, objectives))
 

@@ -259,7 +259,7 @@ def _py_scalar(v):
 def parse_axis_spec(spec) -> tuple:
     """Classify one :meth:`SweepSpec.random` axis spec — the single
     source of truth for spec detection, shared with the BO surrogate's
-    axis encoders (``repro.dse.search.bo``, not ported yet) so sampling
+    axis encoders (:func:`repro_torch.dse.search.bo._axis_codec`) so sampling
     and encoding can never drift apart.
 
     Returns ``("log", lo, hi)``, ``("int", lo, hi)`` (both endpoints

@@ -1,7 +1,8 @@
 """Shared pieces of the engine parity tests: the same small component
 kinds written once for each package, an exact comparison of two states,
-leaf by leaf, f32 compared by its bits and dtypes included, and
-``chip_smoke.py``'s reference constants."""
+leaf by leaf, f32 compared by its bits and dtypes included,
+``chip_smoke.py``'s reference constants, and the small memsys search
+context of both packages (``search_ctx``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,6 +13,7 @@ from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import repro.core as J
@@ -172,3 +174,66 @@ def make_consumer(kit, n, period=1.0, cap=4):
 def make_forwarder(kit, name, n, cap):
     return kit.core.ComponentKind(
         name, kit.forwarder, n, 2, {"seen": kit.i32(np.zeros(n))}, cap=cap)
+
+
+# ---------------------------------------------------------------------------
+# the search tests' context (tests/dse/test_search.py's ``ctx``)
+# ---------------------------------------------------------------------------
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's lanes run eagerly on the CPU, a few hundred tiny ops an
+    epoch; torch's intra-op threads only add wake-up latency to each (a
+    vmapped ``torch.min`` takes milliseconds with 8 threads, 0.06 ms with
+    one).  Import this fixture into a test module to run it on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def search_ctx(pkg: str, n_cores=3, pattern="mixed", n_reqs=6):
+    """One package's memoized small memsys build (``pkg`` "jax" or
+    "torch"), the reference tests' ``est_finish`` extractor, their
+    12-point grid and the list of builds made."""
+    if pkg == "jax":
+        import repro.dse as dse
+        from repro.sims import memsys
+        kw = {}
+    else:
+        import repro_torch.dse as dse
+        from repro_torch.sims import memsys
+        kw = {"device": "cpu"}
+    built = []
+
+    def build_fn():
+        built.append(1)
+        return memsys.build(n_cores=n_cores, pattern=pattern, n_reqs=n_reqs,
+                            donate=True, **kw)
+
+    bf = dse.memoize_build(build_fn)
+    sim, st = bf()
+    total = int(np.sum(as_np(st.comp_state["core"]["remaining"])))
+
+    def extract(sim, s):
+        rem = int(np.sum(as_np(s.comp_state["core"]["remaining"])))
+        vt = float(s.time)
+        done = total - rem
+        return {"virtual_time": vt, "remaining": rem,
+                "est_finish": vt * total / max(done, 1)}
+
+    pool = dse.SweepSpec.grid({"conn_latency[-1]": [10., 20., 30., 40.],
+                               "kind.l1.extra_hit_rate": [0.0, 0.4, 0.8]})
+    return types.SimpleNamespace(dse=dse, memsys=memsys, kw=kw, bf=bf,
+                                 sim=sim, st=st, extract=extract, pool=pool,
+                                 built=built)
+
+
+def assert_same_search(port, ref):
+    """Two ``SearchResult`` objects trial for trial: rows, best, front, budget,
+    rounds, and the ``SearchState`` JSON as text."""
+    assert port.rows == ref.rows
+    assert port.best == ref.best
+    assert port.front == ref.front
+    assert port.budget == ref.budget
+    assert port.rounds == ref.rounds
+    assert port.state.to_json() == ref.state.to_json()

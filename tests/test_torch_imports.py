@@ -34,7 +34,9 @@ def test_importing_every_module_loads_no_jax_or_repro():
               "configs.hubert_xlarge", "sims.onira", "sims.opgraph",
               "sims.triosim", "sims.xlat", "core.tracers", "core.daisen",
               "core.monitor", "obs.sinks", "obs.bridge", "obs.perfetto",
-              "obs.dashboard"):
+              "obs.dashboard", "ckpt", "ckpt.checkpoint", "dse.mux",
+              "dse.search", "dse.search.driver", "dse.search.halving",
+              "dse.search.bo", "dse.search.warm"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
