@@ -105,12 +105,31 @@ Phases (each raises on failure, and the run then exits non-zero):
      capture over the solo runs; (e) CheckpointManager: async saves of
      (b)'s 64-core state and a small bf16/int64/non-finite tree, keep=2
      over 3 saves, restored onto the card bit for bit.
-Then the engine's, the DSE path's, the models', the sims' and the
-search's JSON records, the kernels' JSON record (the line before the
-last; the flash records' launches add phase 7's model runs to phase
-3's), and ``{"ok": true, "device": {...}}`` as the last line.  ``python3
-chip_smoke.py --engine`` runs phase 5 alone, ``--dse`` phase 6,
-``--models`` phases 1 and 7, ``--sims`` phase 8, ``--search`` phase 9.
+  10. train: training through the port's entry points (no new kernel: the
+     forward of both kernels runs inside ``FlashAttentionFn`` and
+     ``SSDFn``, whose backward recomputes the plain version, as the JAX
+     package differentiates its XLA path).  (a) Both Functions' gradients
+     against autograd of the plain versions at hymba's shapes (S=256, and
+     S=2048 where the window of 1024 acts), bf16 and f32, at the kernel
+     tests' tolerances of each gradient's max; (b) one f32
+     ``make_train_step`` of hymba-1.5b-smoke and stablelm-1.6b-smoke on
+     the card against the CPU (loss, gnorm, gradients within 1e-4 of the
+     largest; updated parameters within 2 lr, AdamW's first step being a
+     sign); (c) 20 steps against 10 + a resume to 20, bit for bit; (d) the
+     main path: ``repro_torch.train.loop.train`` on hymba-1.5b whole, bf16,
+     6 steps of B=2 x S=2048, f32 moments, block remat: finite, falling
+     loss, exactly 64 flash and 64 SSD launches a step (forward and
+     recompute), step ms, tokens/s, peak memory, the final checkpoint's
+     bytes and seconds, a profiled step, each kernel's forward against
+     its plain backward; (e) ``python -m repro_torch.launch.train`` on the
+     card.
+Then the engine's, the DSE path's, the models', the sims', the search's
+and the training's JSON records, the kernels' JSON record (the line
+before the last; the launches add phase 7's model runs and phase 10's
+training to phase 3's), and ``{"ok": true, "device": {...}}`` as the
+last line.  ``python3 chip_smoke.py --engine`` runs phase 5 alone,
+``--dse`` phase 6, ``--models`` phases 1 and 7, ``--sims`` phase 8,
+``--search`` phase 9, ``--train`` phases 1 and 10.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -454,7 +473,7 @@ def nbytes(*ts):
 def compare(name, out, ref, dtype_name):
     import torch
     tol = TOL[name][dtype_name]
-    out, ref = out.float(), ref.float()
+    out, ref = out.detach().float(), ref.detach().float()
     err = float((out - ref).abs().max())
     if not torch.isfinite(out).all():
         raise AssertionError(f"{name}: non-finite kernel output")
@@ -944,13 +963,14 @@ def _kernel_group(name):
     return "other"
 
 
-def _profiled(fn, dev, labels=()):
+def _profiled(fn, dev, labels=(), host=True):
     """Run ``fn`` once unprofiled and once under torch.profiler.  Returns
     the profile, its kernel (and copy) events, the device-busy time (the
     union of their intervals: the SSD kernels overlap by programmatic
     dependent launch), and both host walls in us.  The ``labels``' own
     spans on the device timeline (record_function annotations) are not
-    kernels and are left out."""
+    kernels and are left out.  ``host=False`` traces the device alone,
+    which slows the host far less than recording every host op."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     _sync(dev)
@@ -958,8 +978,10 @@ def _profiled(fn, dev, labels=()):
     fn()
     _sync(dev)
     wall = (time.perf_counter() - t) * 1e6
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if host:
+        acts.append(ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         t = time.perf_counter()
         fn()
         _sync(dev)
@@ -3061,6 +3083,520 @@ def check_search():
 
 
 # ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+# hymba-1.5b's attention and SSM at its training shapes: S=256, S=2048
+# where the window of 1024 acts, and the main run's B=2 x S=2048 with the
+# window and without it (its 3 global layers)
+TRAIN_FA_CASES = [(1, 256, 25, 5, 64, True, 1024, 0.0),
+                  (1, 2048, 25, 5, 64, True, 1024, 0.0),
+                  (2, 2048, 25, 5, 64, True, 1024, 0.0),
+                  (2, 2048, 25, 5, 64, True, 0, 0.0)]
+TRAIN_SSD_CASES = [(B, S, 50, 64, 16, 128)
+                   for B, S in ((1, 256), (1, 2048), (2, 2048))]
+TRAIN_SMOKE = ("hymba-1.5b", "stablelm-1.6b")
+TRAIN_SMOKE_LR = 1e-2
+TRAIN_STEP_TOL = 1e-4     # card against CPU, f32, of the largest magnitude
+TRAIN_MAIN = dict(arch="hymba-1.5b", steps=6, batch=2, seq=2048, lr=3e-4)
+
+
+def _grads_of(fn, inputs, weights):
+    """(gradients, outputs) of L = sum(out * w) + sum(out^2) / 2 over
+    ``fn``'s outputs, at fresh leaf copies of ``inputs``: the quadratic
+    term puts ``fn``'s own outputs into the upstream gradient."""
+    import torch
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o.float() * w).sum() + 0.5 * (o.float() ** 2).sum()
+               for o, w in zip(outs, weights))
+    return torch.autograd.grad(loss, leaves), outs
+
+
+def _held_grads(name, got, ref, dn, labels):
+    """Each gradient within the kernel tests' tolerance of its largest
+    |ref|; returns the largest error relative to that."""
+    tol = TOL[name][dn]
+    worst = 0.0
+    for lab, g, r in zip(labels, got, ref):
+        g, r = g.float(), r.float()
+        if not bool(g.isfinite().all()):
+            raise AssertionError(f"{name} {dn}: non-finite d{lab}")
+        scale = float(r.abs().max())
+        err = float((g - r).abs().max()) / max(scale, 1e-30)
+        if err > tol:
+            raise AssertionError(f"{name} {dn}: d{lab} differs by {err:.3g}"
+                                 f" of its max {scale:.3g} (tol {tol})")
+        worst = max(worst, err)
+    return worst
+
+
+def check_kernel_grads(dev, gen):
+    """(a) FlashAttentionFn's and SSDFn's outputs and gradients (the
+    kernel's forward, the plain version's backward) against the plain
+    versions and their autograd, on the card, in bf16 and f32: outputs
+    within the kernel tests' tolerance as in phase 2, gradients within it
+    of each gradient's max."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+
+    rec = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for B, S, H, KV, hd, causal, window, cap in TRAIN_FA_CASES:
+            qkv = _qkv(gen, dev, B, S, H, KV, hd, dtype)
+            w = [torch.randn((B, S, H, hd), generator=gen, device=dev)]
+            kw = dict(causal=causal, window=window, cap=cap)
+            got, out = _grads_of(lambda q, k, v: fa_ops.flash_attention(
+                q, k, v, None, None, **kw), qkv, w)
+            ref, out_ref = _grads_of(lambda q, k, v: flash_attention_ref(
+                q, k, v, **kw), qkv, w)
+            eo = compare("flash_attention", out[0], out_ref[0], dn)
+            e = _held_grads("flash_attention", got, ref, dn, "qkv")
+            rec[f"flash {dn} B={B} S={S} w={window}"] = dict(out=eo, grad=e)
+            log(f"grad flash_attention {dn} B={B} S={S} H={H} KV={KV} "
+                f"hd={hd} window={window}: output max_abs_err {eo:.3g}; "
+                f"dq, dk, dv within {e:.3g} of their max (tol "
+                f"{TOL['flash_attention'][dn]})")
+        for B, S, H, P, N, chunk in TRAIN_SSD_CASES:
+            ins = (torch.randn((B, S, H, P), generator=gen,
+                               device=dev).to(dtype),
+                   F.softplus(torch.randn((B, S, H), generator=gen,
+                                          device=dev) - 1.0),
+                   -torch.exp(torch.randn((H,), generator=gen,
+                                          device=dev) * 0.3),
+                   torch.randn((B, S, N), generator=gen,
+                               device=dev).to(dtype),
+                   torch.randn((B, S, N), generator=gen,
+                               device=dev).to(dtype))
+            w = [torch.randn((B, S, H, P), generator=gen, device=dev),
+                 torch.randn((B, H, P, N), generator=gen, device=dev)]
+            got, out = _grads_of(lambda *a: ssd_ops.ssd(*a, chunk), ins, w)
+            ref, out_ref = _grads_of(lambda *a: ssd_chunked(*a, chunk), ins,
+                                     w)
+            eo = max(compare("ssd", o, r, dn) for o, r in zip(out, out_ref))
+            e = _held_grads("ssd", got, ref, dn,
+                            ("xs", "dt", "A", "B", "C"))
+            rec[f"ssd {dn} B={B} S={S}"] = dict(out=eo, grad=e)
+            log(f"grad ssd {dn} B={B} S={S} H={H} P={P} N={N} chunk="
+                f"{chunk}: y and state max_abs_err {eo:.3g}; dxs, ddt, dA, "
+                f"dB, dC within {e:.3g} of their max (tol {TOL['ssd'][dn]})")
+    return rec
+
+
+def _f32_step_pair(dev, arch):
+    """(b) One f32 train step of ``arch``'s smoke config on the card and
+    on the CPU from the same weights, batch and state: the f32 kernels'
+    training path.  Returns the record and the card's launches."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.ssd import kernel as ssdk
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw_init
+    from repro_torch.core.engine import ref_leaves
+    from repro_torch.train.step import (TrainHParams, make_train_step,
+                                        value_and_grad)
+
+    cfg = get_smoke_config(arch)
+    cpu = tfm.init_model(cfg, 3, device="cpu", dtype=torch.float32,
+                         requires_grad=True)
+    gpu = copy.deepcopy(cpu).to(dev)
+    batch = DataPipeline(cfg, batch=2, seq=32, seed=1)(0)
+    hp = TrainHParams(lr=TRAIN_SMOKE_LR)
+    out = {}
+    _zero_flash_counts()
+    ssdk.launches = 0
+    for side, model in (("cpu", cpu), ("card", gpu)):
+        tb = {k: torch.as_tensor(v, device=model.device)
+              for k, v in batch.items()}
+        _, g = value_and_grad(cfg, model, tb)
+        opt = adamw_init(tfm.param_tree(model))
+        loss, gnorm, model, _ = make_train_step(cfg, hp)(model, opt, tb)
+        out[side] = dict(g=[t.float().cpu() for t in ref_leaves(g)],
+                         p=[t.detach().float().cpu() for t in
+                            ref_leaves(tfm.param_tree(model))],
+                         loss=float(loss), gnorm=float(gnorm))
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fak.launches, "ssd": ssdk.launches}
+    want = {"flash_attention": 4 * cfg.n_layers if cfg.has_attn else 0,
+            "ssd": 4 * cfg.n_layers if cfg.has_ssm else 0}
+    if launches != want:
+        raise AssertionError(f"{arch}-smoke f32 step: launches {launches}, "
+                             f"want {want} (forward and recompute, twice)")
+    c, k = out["cpu"], out["card"]
+    for key in ("loss", "gnorm"):
+        if abs(k[key] - c[key]) > TRAIN_STEP_TOL * abs(c[key]):
+            raise AssertionError(f"{arch}-smoke f32 step: {key} card "
+                                 f"{k[key]} vs CPU {c[key]}")
+    gmax = max(float(t.abs().max()) for t in c["g"])
+    gerr = max(float((a - b).abs().max()) for a, b in zip(k["g"], c["g"]))
+    if gerr > TRAIN_STEP_TOL * gmax:
+        raise AssertionError(f"{arch}-smoke f32 gradients: card vs CPU "
+                             f"{gerr:.3g} > {TRAIN_STEP_TOL} x {gmax:.3g}")
+    pmax = max(float(t.abs().max()) for t in c["p"])
+    d = [(a - b).abs() for a, b in zip(k["p"], c["p"])]
+    perr = max(float(x.max()) for x in d)
+    moved = sum(int((x > 1e-6).sum()) for x in d)
+    total = sum(x.numel() for x in d)
+    # AdamW's first step is a sign: where a gradient is within rounding
+    # of 0 the two sides may move a parameter by +lr and -lr
+    if perr > 2 * TRAIN_SMOKE_LR * 1.001:
+        raise AssertionError(f"{arch}-smoke f32 step: a parameter moved "
+                             f"{perr:.3g} apart (> 2 lr)")
+    rec = dict(loss_card=k["loss"], loss_cpu=c["loss"],
+               gnorm_card=k["gnorm"], gnorm_cpu=c["gnorm"],
+               grad_err_of_max=gerr / gmax, param_err=perr,
+               param_err_of_max=perr / pmax, moved_over_1e6=moved,
+               params=total, launches=launches)
+    log(f"{arch}-smoke f32 train step, card vs CPU: loss {k['loss']:.7f} "
+        f"vs {c['loss']:.7f}, gnorm {k['gnorm']:.7f} vs {c['gnorm']:.7f}, "
+        f"gradients within {gerr / gmax:.3g} of the largest (tol "
+        f"{TRAIN_STEP_TOL}); updated parameters within {perr:.3g} "
+        f"({perr / pmax:.3g} of the largest), {moved} of {total} apart by "
+        f"more than 1e-6 (sign flips at |g| ~ 0); launches {launches}")
+    return rec, launches
+
+
+def _resume_run(dev, out_dir):
+    """20 uninterrupted steps against 10 steps, a checkpoint and a resume
+    to 20, on the card: True when parameters and state agree bit for
+    bit."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.core.engine import ref_leaves
+    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.step import TrainHParams
+
+    cfg = dataclasses.replace(get_smoke_config("stablelm-1.6b"),
+                              n_layers=2, d_model=32, n_heads=2,
+                              n_kv_heads=2, head_dim=16, d_ff=64, vocab=64)
+    hp = TrainHParams(lr=1e-2)
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    def run(sub, steps, every):
+        return train(cfg, DataPipeline(cfg, batch=4, seq=16, seed=0),
+                     LoopConfig(steps=steps, ckpt_every=every,
+                                ckpt_dir=str(out_dir / sub),
+                                log_every=1000), hp, device=dev)
+    pa, oa, _ = run("a", 20, 100)
+    run("b", 10, 10)
+    pb, ob, hist = run("b", 20, 100)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if [h["step"] for h in hist] != list(range(10, 20)):
+        raise AssertionError(f"resume ran steps {[h['step'] for h in hist]}")
+    same = all(torch.equal(a, b) for a, b in
+               zip(pa.parameters(), pb.parameters()))
+    return same and all(torch.equal(a, b) for a, b in
+                        zip(ref_leaves(oa), ref_leaves(ob)))
+
+
+def check_resume(dev):
+    """(c) Kill and resume bit for bit on the card, with PyTorch's default
+    algorithms (no ``use_deterministic_algorithms``)."""
+    t = time.perf_counter()
+    if not _resume_run(dev, ROOT / "build" / "train" / "resume"):
+        raise AssertionError("resume is not bit-exact on the card")
+    rec = dict(bit_exact=True, s=time.perf_counter() - t)
+    log(f"kill and resume on the card (20 steps against 10 + resume to 20): "
+        f"parameters and AdamW state bit for bit ({rec['s']:.1f} s)")
+    return rec
+
+
+class _StepLaunches:
+    """Tracer: both kernels' launches inside each ``train`` step task."""
+
+    def __init__(self):
+        self.steps: list[dict] = []
+        self._t0 = None
+        self.ckpt_end = None      # host clock when the last save returned
+
+    @staticmethod
+    def _now():
+        from repro_torch.kernels.flash_attention import kernel as fak
+        from repro_torch.kernels.ssd import kernel as ssdk
+        return {"flash_attention": fak.launches, "ssd": ssdk.launches}
+
+    def on_start(self, t):
+        if t.category == "train":
+            self._t0 = self._now()
+
+    def on_end(self, t):
+        if t.category == "train":
+            now = self._now()
+            self.steps.append({k: now[k] - self._t0[k] for k in now})
+        if t.category == "checkpoint":
+            self.ckpt_end = time.perf_counter()
+
+    def on_tag(self, t, tag):
+        pass
+
+
+def _kernel_vs_backward(dev, gen, cfg, B, S):
+    """Each kernel's forward time (a CUDA graph of 20 calls) against its
+    Function's backward (the plain version recomputed and
+    differentiated, eager) at one hymba layer's training shapes, bf16."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.flash_attention.autograd import FlashAttentionFn
+    from repro_torch.kernels.ssd import kernel as ssdk
+    from repro_torch.kernels.ssd.autograd import SSDFn
+
+    bf = torch.bfloat16
+    H, KV, hd, w = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
+    q, k, v = (t.requires_grad_() for t in _qkv(gen, dev, B, S, H, KV, hd,
+                                                  bf))
+    o = FlashAttentionFn.apply(q, k, v, True, w, 0.0, None)
+    g = torch.randn_like(o)
+    fa_fwd = time_ms(lambda: fak.flash_attention(q.detach(), k.detach(),
+                                                 v.detach(), window=w))
+    fa_bwd = eager_ms(lambda: torch.autograd.grad(o, (q, k, v), g,
+                                                  retain_graph=True), reps=3)
+    Hs, P, N, chunk = cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state, \
+        cfg.ssm_chunk
+    ins = [torch.randn((B, S, Hs, P), generator=gen, device=dev).to(bf),
+           F.softplus(torch.randn((B, S, Hs), generator=gen, device=dev)
+                      - 1.0),
+           -torch.exp(torch.randn((Hs,), generator=gen, device=dev) * 0.3),
+           torch.randn((B, S, N), generator=gen, device=dev).to(bf),
+           torch.randn((B, S, N), generator=gen, device=dev).to(bf)]
+    ins = [t.requires_grad_() for t in ins]
+    y, _ = SSDFn.apply(*ins, chunk)
+    gy = torch.randn_like(y)
+    ssd_fwd = time_ms(lambda: ssdk.ssd(*(t.detach() for t in ins),
+                                       chunk=chunk))
+    ssd_bwd = eager_ms(lambda: torch.autograd.grad(y, ins, gy,
+                                                   retain_graph=True),
+                       reps=3)
+    rec = dict(flash_fwd_ms=fa_fwd, flash_plain_bwd_ms=fa_bwd,
+               ssd_fwd_ms=ssd_fwd, ssd_plain_bwd_ms=ssd_bwd)
+    log(f"one hymba layer at B={B} S={S}, bf16: flash kernel forward "
+        f"{fa_fwd:.4f} ms, its plain backward {fa_bwd:.3f} ms; SSD kernel "
+        f"forward {ssd_fwd:.4f} ms, its plain backward {ssd_bwd:.3f} ms")
+    return rec
+
+
+def train_hymba(dev, gen):
+    """(d) The main path: ``repro_torch.train.loop.train`` on hymba-1.5b
+    whole, bf16, TRAIN_MAIN's steps of ``DataPipeline`` batches, f32
+    moments, block remat; both kernels launch twice a layer a step."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tracing import TracingDomain
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels.ssd import kernel as ssdk
+    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.step import TrainHParams, make_train_step
+
+    m = TRAIN_MAIN
+    cfg = get_config(m["arch"])
+    if cfg.remat != "block":
+        raise AssertionError(f"{cfg.name}: remat {cfg.remat!r}, want block")
+    _free(dev)
+    model, n = _init_model(cfg, dev, torch.bfloat16)
+    model.requires_grad_(True)
+    out_dir = ROOT / "build" / "train" / "hymba"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    need = 3 * 4 * n               # params (bf16 stored as f32), m, v
+    free = shutil.disk_usage(out_dir).free
+    log(f"checkpoint of {need / 1e9:.1f} GB due at the last step; "
+        f"{free / 1e9:.1f} GB free under {out_dir}")
+    if free < 1.1 * need:
+        raise AssertionError(f"not enough disk for the final checkpoint: "
+                             f"{free} bytes free, {need} needed")
+    dom = TracingDomain("train")
+    spy = dom.attach(_StepLaunches())
+    timer = dom.attach(_Timer())
+    data = DataPipeline(cfg, batch=m["batch"], seq=m["seq"], seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts()
+    ssdk.launches = 0
+    t = time.perf_counter()
+    model, opt, hist = train(
+        cfg, data, LoopConfig(steps=m["steps"], ckpt_every=10 ** 9,
+                              ckpt_dir=str(out_dir), keep=1, log_every=1),
+        TrainHParams(lr=m["lr"]), domain=dom, resume=False,
+        params=model, device=dev)
+    t_end = time.perf_counter()
+    wall = t_end - t
+    peak = torch.cuda.max_memory_allocated()
+    launches = _StepLaunches._now()
+    ck = [d for d in out_dir.iterdir() if d.name.startswith("step_")]
+    ck_bytes = sum(f.stat().st_size for d in ck for f in d.iterdir())
+    copy_s = timer.spans["checkpoint"][0] / 1e3
+    write_s = t_end - spy.ckpt_end
+    shutil.rmtree(out_dir, ignore_errors=True)
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["gnorm"] for h in hist]
+    if len(hist) != m["steps"] or not all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"hymba training: losses {losses}, gnorms "
+                             f"{gnorms}")
+    if not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        raise AssertionError(f"hymba training: the loss did not fall: "
+                             f"{losses}")
+    want = {"flash_attention": 2 * cfg.n_layers, "ssd": 2 * cfg.n_layers}
+    if any(s != want for s in spy.steps):
+        raise AssertionError(f"hymba training: launches a step "
+                             f"{spy.steps}, want {want}")
+    if len(ck) != 1 or ck[0].name != f"step_{m['steps'] - 1:08d}":
+        raise AssertionError(f"hymba training: checkpoints {ck}")
+    dts = [h["dt"] * 1e3 for h in hist[1:]]
+    toks = m["batch"] * m["seq"]
+    flops = 8 * n * toks          # forward, recompute, backward (2 x 3)
+    b_ms = flops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    rec = dict(arch=cfg.name, params=n, batch=m["batch"], seq=m["seq"],
+               steps=m["steps"], lr=m["lr"], losses=losses, gnorms=gnorms,
+               step_ms=dts, step_ms_mean=sum(dts) / len(dts),
+               first_step_ms=hist[0]["dt"] * 1e3,
+               tokens_per_s=toks / (sum(dts) / len(dts) / 1e3),
+               peak_gib=peak / 2 ** 30, launches=launches,
+               launches_per_step=spy.steps[0], wall_s=wall,
+               ckpt_bytes=ck_bytes, ckpt_host_copy_s=copy_s,
+               ckpt_write_s=write_s, bound_ms=b_ms, bound_flop=flops)
+    log(f"hymba-1.5b training, {m['steps']} steps of B={m['batch']} x "
+        f"S={m['seq']} bf16: losses {[round(x, 4) for x in losses]}, "
+        f"gnorms {[round(x, 4) for x in gnorms]}; step ms (steps 2-"
+        f"{m['steps']}) {[round(x, 1) for x in dts]}, mean "
+        f"{rec['step_ms_mean']:.1f} (first {rec['first_step_ms']:.1f}), "
+        f"{rec['tokens_per_s']:.0f} tokens/s; bound {b_ms:.1f} ms "
+        f"(8 N T = {flops:.3g} FLOP at 989 TFLOP/s, a floor); peak "
+        f"{rec['peak_gib']:.2f} GiB; launches a step {spy.steps[0]}; final "
+        f"checkpoint {ck_bytes} bytes: host copy {copy_s:.1f} s, write "
+        f"{write_s:.1f} s")
+
+    # one more step, profiled: device busy share and time by group
+    step = make_train_step(cfg, TrainHParams(lr=m["lr"]))
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in data(0).items()}
+    state = {"o": opt}
+
+    def one():
+        _, _, _, state["o"] = step(model, state["o"], tb)
+    # unprofiled: the host's time to enqueue a step (it reads nothing
+    # back) against the step's wall to a device sync.  The card can idle
+    # only while its queue is empty, so only within the enqueue time; an
+    # enqueue time near the wall is ambiguous (a full launch queue blocks
+    # the host too).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    enq_us = (time.perf_counter() - t0) * 1e6
+    torch.cuda.synchronize()
+    wall_e = (time.perf_counter() - t0) * 1e6
+    log(f"unprofiled hymba train step: the host enqueued it in "
+        f"{enq_us:.0f} us of its {wall_e:.0f} us wall "
+        f"({100 * enq_us / wall_e:.1f}%)")
+    prof, kern, busy, wall_u, wall_p = _profiled(one, dev)
+    groups: dict[str, float] = {}
+    for e in kern:
+        grp = _kernel_group(e.name)
+        groups[grp] = groups.get(grp, 0.0) + e.time_range.elapsed_us()
+    rec["profile"] = dict(wall_us=wall_u, wall_profiled_us=wall_p,
+                          busy_us=busy, busy_share=busy / wall_p,
+                          kernels=len(kern), group_us=groups,
+                          host_enqueue_us=enq_us, enqueue_wall_us=wall_e)
+    log(f"profile hymba train step: wall {wall_u:.0f} us unprofiled, "
+        f"{wall_p:.0f} us profiled; device busy {busy:.0f} us "
+        f"({100 * busy / wall_p:.1f}% of the profiled wall), {len(kern)} "
+        f"kernels; device us by group: " + ", ".join(
+            f"{g} {u:.0f}" for g, u in sorted(groups.items(),
+                                                 key=lambda kv: -kv[1])))
+    ev = prof.key_averages()
+    key = ("self_device_time_total"
+           if hasattr(ev[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    log(ev.table(sort_by=key, row_limit=12))
+    del prof, kern
+    # the device traced alone: its wall stays near the unprofiled one, so
+    # its busy share is read against a wall of the same run
+    _, kern, busy, wall_u, wall_p = _profiled(one, dev, host=False)
+    rec["profile"]["device_only"] = dict(
+        wall_us=wall_u, wall_profiled_us=wall_p, busy_us=busy,
+        busy_share=busy / wall_p, kernels=len(kern))
+    log(f"profile hymba train step, device traced alone: wall {wall_u:.0f} "
+        f"us unprofiled, {wall_p:.0f} us profiled; device busy {busy:.0f} "
+        f"us ({100 * busy / wall_p:.1f}% of the profiled wall), {len(kern)} "
+        f"kernels")
+    del model, opt, state, kern
+    _free(dev)
+    rec["layer"] = _kernel_vs_backward(dev, gen, cfg, m["batch"], m["seq"])
+    return rec
+
+
+def check_launch_train():
+    """(e) ``python -m repro_torch.launch.train`` on the card, as a user
+    runs it."""
+    import os
+    import shutil
+    out_dir = ROOT / "build" / "train" / "launch"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "hymba-1.5b", "--smoke", "--steps", "4", "--batch", "2", "--seq",
+           "64", "--ckpt", str(out_dir), "--no-resume"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(out.stdout.strip())
+    if out.returncode != 0 or "done: loss" not in out.stdout:
+        raise AssertionError(f"launch.train exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    return dict(rc=out.returncode, wall_s=wall,
+                done=out.stdout.strip().splitlines()[-1])
+
+
+def check_train(dev):
+    """Phase 10: training on the card."""
+    import torch
+    card = _card()
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(10)
+    rec = {"card": card}
+    parts = rec["parts_s"] = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return out
+
+    rec["a"] = part("a", check_kernel_grads, dev, gen)
+    rec["b"] = {}
+    f32 = {"flash_attention": 0, "ssd": 0}
+    t = time.perf_counter()
+    for arch in TRAIN_SMOKE:
+        rec["b"][arch], n = _f32_step_pair(dev, arch)
+        f32 = {k: f32[k] + n[k] for k in f32}
+    parts["b"] = time.perf_counter() - t
+    rec["f32_launches"] = f32
+    rec["c"] = part("c", check_resume, dev)
+    rec["d"] = part("d", train_hymba, dev, gen)
+    rec["e"] = part("e", check_launch_train)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{card}] phase 10 (train) took {rec['phase_s']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    return rec
+
+
+# ---------------------------------------------------------------------------
 def main():
     try:
         import torch
@@ -3103,6 +3639,11 @@ def main():
         setup()
         print(json.dumps({"models": check_models(dev)}), flush=True)
         return 0
+    if sys.argv[1:] == ["--train"]:
+        # phase 10 alone, after phase 1 (the builds, TF32 off)
+        setup()
+        print(json.dumps({"train": check_train(dev)}), flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
@@ -3120,9 +3661,13 @@ def main():
     models = check_models(dev)
     sims = check_sims()
     search = check_search()
-    fa_bf16 = launches["flash_attention"] + models["launches"]["bfloat16"]
+    train = check_train(dev)
+    fa_bf16 = launches["flash_attention"] + \
+        models["launches"]["bfloat16"] + \
+        train["d"]["launches"]["flash_attention"]
     fa_f32 = f32_launches["flash_attention"] + \
-        models["launches"]["float32"]
+        models["launches"]["float32"] + \
+        train["f32_launches"]["flash_attention"]
 
     fa_src = "src/repro/kernels/flash_attention/kernel.py:25"
     ssd_src = "src/repro/kernels/ssd/kernel.py:23"
@@ -3132,13 +3677,15 @@ def main():
              replaces=fa_src, launches=fa_bf16, **fa["bfloat16"]),
         dict(name="ssd_tc", route="cuda",
              source="src/repro_torch/csrc/ssd_tc.cu", replaces=ssd_src,
-             launches=launches["ssd"], **sd["bfloat16"]),
+             launches=launches["ssd"] + train["d"]["launches"]["ssd"],
+             **sd["bfloat16"]),
         dict(name="flash_attention_f32", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces=fa_src, launches=fa_f32, **fa["float32"]),
         dict(name="ssd_f32", route="cuda",
              source="src/repro_torch/csrc/ssd.cu", replaces=ssd_src,
-             launches=f32_launches["ssd"], **sd["float32"]),
+             launches=f32_launches["ssd"] + train["f32_launches"]["ssd"],
+             **sd["float32"]),
     ]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
@@ -3147,6 +3694,7 @@ def main():
     print(json.dumps({"models": models}))
     print(json.dumps({"sims": sims}))
     print(json.dumps({"search": search}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": [{k: kr[k] for k in keys}
                                   for kr in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -137,6 +137,48 @@ def tree_unflatten(template, leaves):
     return tree_map(lambda _: next(it), template)
 
 
+def ref_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` in the reference's pytree order
+    (``jax.tree.leaves``: dataclass fields in declaration order, dict keys
+    sorted, ``None`` no leaf), rebuilding the tree; dicts keep their
+    insertion order.  ``rest`` are trees of the same structure, where a
+    leaf of ``tree`` may be matched by a subtree."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        done = {k: ref_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+        return {k: done[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(ref_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: ref_map(fn, getattr(tree, f.name),
+                            *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)})
+    return fn(tree, *rest)
+
+
+def ref_leaves(tree) -> list:
+    """The leaves of a tree in :func:`ref_map`'s order (that of
+    ``jax.tree.leaves`` on the same tree)."""
+    out = []
+    ref_map(out.append, tree)
+    return out
+
+
+def ref_unflatten(template, leaves):
+    """A tree of ``template``'s structure holding ``leaves`` in
+    :func:`ref_leaves`' order (its inverse)."""
+    leaves = list(leaves)
+    n = len(ref_leaves(template))
+    if len(leaves) != n:
+        raise ValueError(f"{len(leaves)} leaves for a template of {n}")
+    it = iter(leaves)
+    return ref_map(lambda _: next(it), template)
+
+
 def _structure(tree):
     """Hashable structure of a tree: keys, shapes and dtypes."""
     if isinstance(tree, torch.Tensor):

@@ -1,2 +1,3 @@
-"""Input pipeline pieces the port needs."""
-from .pipeline import ByteTokenizer  # noqa: F401
+"""Input pipeline: a copy of ``repro.data``."""
+from .pipeline import (ByteTokenizer, DataPipeline,  # noqa: F401
+                       synthetic_batch)

@@ -33,53 +33,16 @@ handles make the post-resume rounds charge the same increments
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import time
 
 from repro_torch.ckpt import list_steps, restore_checkpoint, save_checkpoint
+from repro_torch.core.engine import ref_leaves, ref_unflatten  # noqa: F401
 from repro_torch.obs.bus import BUS
 
 from ..runner import ResumeHandle
 from .driver import SearchState
-
-
-def _ref_map(fn, tree):
-    """``fn`` over the leaves of ``tree`` in the reference's pytree order,
-    rebuilding the tree (``None`` stays ``None``, dicts keep their
-    insertion order)."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        done = {k: _ref_map(fn, tree[k]) for k in sorted(tree)}
-        return {k: done[k] for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_ref_map(fn, v) for v in tree)
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return dataclasses.replace(tree, **{
-            f.name: _ref_map(fn, getattr(tree, f.name))
-            for f in dataclasses.fields(tree)})
-    return fn(tree)
-
-
-def ref_leaves(tree) -> list:
-    """The leaves of a state tree in ``jax.tree.leaves``' order: dataclass
-    fields in declaration order, dict keys sorted, ``None`` no leaf."""
-    out = []
-    _ref_map(out.append, tree)
-    return out
-
-
-def ref_unflatten(template, leaves):
-    """A tree of ``template``'s structure holding ``leaves`` in
-    :func:`ref_leaves`' order (its inverse)."""
-    leaves = list(leaves)
-    n = len(ref_leaves(template))
-    if len(leaves) != n:
-        raise ValueError(f"{len(leaves)} leaves for a template of {n}")
-    it = iter(leaves)
-    return _ref_map(lambda _: next(it), template)
 
 
 def save_search(path: str, driver, step: int | None = None) -> str:

@@ -57,17 +57,20 @@ def blockwise_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
 
     q: [B,Sq,H,hd]; k,v: [B,Sk,KV,hd]; q_pos: [B,Sq]; kv_pos: [B,Sk]
     (kv_pos < 0 marks invalid cache slots).  Returns [B,Sq,H,hd].
+    Scores and the softmax are f32 (f64 for f64 inputs, which the
+    gradient checks use).
     """
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     hd_v = v.shape[-1]
     G = H // KV
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    qf = q.reshape(B, Sq, KV, G, hd).float()
+    wide = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf = q.reshape(B, Sq, KV, G, hd).to(wide)
 
     def scores_of(kc, kvp):
         # f32 scores from (exactly widened) inputs: preferred_element_type
-        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kc.float()) * scale
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kc.to(wide)) * scale
         if cap:
             s = softcap(s, cap)
         m = _mask(q_pos, kvp, causal, window)            # [B,Sq,ck]
@@ -86,10 +89,9 @@ def blockwise_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=-1)
 
-    m = torch.full((B, KV, G, Sq), NEG, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, KV, G, Sq, hd_v), dtype=torch.float32,
-                      device=q.device)
+    m = torch.full((B, KV, G, Sq), NEG, dtype=wide, device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=wide, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, hd_v), dtype=wide, device=q.device)
     for c in range(n):
         sl = slice(c * chunk, (c + 1) * chunk)
         kc, vc, kvp = k[:, sl], v[:, sl], kv_pos[:, sl]
@@ -103,7 +105,7 @@ def blockwise_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
                               p.to(torch.bfloat16).float(),
                               vc.to(torch.bfloat16).float())
         else:
-            pv = torch.einsum("bkgqs,bskd->bkgqd", p, vc.float())
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p, vc.to(wide))
         acc = acc * corr[..., None] + pv
         m = m2
     out = acc / torch.clamp(l, min=1e-30)[..., None]

@@ -1,5 +1,5 @@
 """Parameter specs, their initialisation, and the basic layers (norms, MLPs,
-embeddings).  Counterpart of ``repro.models.layers``.
+embeddings, the loss).  Counterpart of ``repro.models.layers``.
 
 A :class:`PSpec` carries a parameter's shape and init kind; the JAX
 package's sharding axes have no single-card meaning and are dropped.
@@ -133,3 +133,20 @@ def unembed(params, cfg, x):
     if cfg.vocab_padded != cfg.vocab:  # mask padding columns
         logits[..., cfg.vocab:] = -1e30
     return logits
+
+
+def cross_entropy(logits, labels, mask=None, z_loss: float = 0.0):
+    """Mean token cross-entropy (f32), optional validity mask + z-loss.
+
+    The vocab padding columns that :func:`unembed` sets to -1e30 add
+    nothing to the log-sum-exp and get a zero gradient, as in the JAX
+    package."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    if mask is not None:
+        return torch.sum(loss * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.mean(loss)

@@ -53,8 +53,10 @@ def ssd_chunked(xs, dt, A, B_, C_, chunk: int):
 
     Any S: the tail is zero-padded to a whole chunk.  A padded step has
     dt=0, so it neither decays the state nor adds to it, and the rows it
-    yields are dropped.
+    yields are dropped.  The arithmetic is f32 (f64, state included, for
+    f64 inputs, which the gradient checks use).
     """
+    wide = torch.float64 if xs.dtype == torch.float64 else torch.float32
     B, S, H, Pd = xs.shape
     N = B_.shape[-1]
     nc = -(-S // chunk)
@@ -70,13 +72,13 @@ def ssd_chunked(xs, dt, A, B_, C_, chunk: int):
     def r(t):
         return t.reshape((B, nc, chunk) + tuple(t.shape[2:]))
 
-    xs_, dt_, Bc, Cc = r(xs_p), r(dt.float()), r(B_), r(C_)
+    xs_, dt_, Bc, Cc = r(xs_p), r(dt.to(wide)), r(B_), r(C_)
 
-    a = dt_ * A.float()                                       # [B,nc,l,H]
+    a = dt_ * A.to(wide)                                      # [B,nc,l,H]
     # within-chunk cumsum, accumulated in f64 and rounded once: |cum|
     # reaches the hundreds at long chunks, where the order of an f32 scan
     # moves exp(cum_i - cum_j) by ~1e-4 (the CUDA kernels scan in f64 too)
-    cum = torch.cumsum(a.double(), dim=2).float()
+    cum = torch.cumsum(a.double(), dim=2).to(wide)
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # [B,nc,i,j,H]
     li = torch.arange(chunk, device=xs.device)
     causal = (li[:, None] >= li[None, :])[None, None, :, :, None]
@@ -84,17 +86,17 @@ def ssd_chunked(xs, dt, A, B_, C_, chunk: int):
     L = torch.exp(torch.where(causal, seg, -1e30))
 
     # intra-chunk: y[i] = sum_j (C_i·B_j) L[i,j] dt_j x_j
-    cb = torch.einsum("bcin,bcjn->bcij", Cc.float(), Bc.float())
+    cb = torch.einsum("bcin,bcjn->bcij", Cc.to(wide), Bc.to(wide))
     scores = cb[:, :, :, :, None] * L * dt_[:, :, None, :, :]
-    y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores, xs_.float())
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores, xs_.to(wide))
 
     # per-chunk state contribution: sum_j exp(cum_end - cum_j) dt_j B_j x_j^T
     decay_out = torch.exp(cum[:, :, -1:, :] - cum)            # [B,nc,l,H]
-    wB = (decay_out * dt_)[..., None] * Bc.float()[:, :, :, None, :]
-    contrib = torch.einsum("bcjhn,bcjhp->bchpn", wB, xs_.float())
+    wB = (decay_out * dt_)[..., None] * Bc.to(wide)[:, :, :, None, :]
+    contrib = torch.einsum("bcjhn,bcjhp->bchpn", wB, xs_.to(wide))
     chunk_decay = torch.exp(cum[:, :, -1])                    # [B,nc,H]
 
-    h = torch.zeros((B, H, Pd, N), dtype=torch.float32, device=xs.device)
+    h = torch.zeros((B, H, Pd, N), dtype=wide, device=xs.device)
     h_prevs = []
     for c in range(nc):
         h_prevs.append(h)
@@ -102,7 +104,7 @@ def ssd_chunked(xs, dt, A, B_, C_, chunk: int):
     h_prevs = torch.stack(h_prevs, dim=1)                     # [B,nc,H,P,N]
 
     # inter-chunk: y[i] += C_i · (h_prev * exp(cum_i))
-    y_inter = torch.einsum("bcin,bchpn->bcihp", Cc.float(), h_prevs) * \
+    y_inter = torch.einsum("bcin,bchpn->bcihp", Cc.to(wide), h_prevs) * \
         torch.exp(cum)[:, :, :, :, None]
     y = (y_intra + y_inter).reshape(B, nc * chunk, H, Pd)[:, :S]
     return y.to(xs.dtype), h

@@ -11,12 +11,18 @@ hymba's 3 global layers) goes layer by layer through
 :func:`decode_unrolled`, with ring buffers for the sliding-window layers.
 
 Modes: ``train`` (loss-ready logits), ``prefill`` (build decode cache),
-``decode`` (one token against the cache).
+``decode`` (one token against the cache).  :func:`train_loss` is the
+training objective; in ``train`` mode with gradients on, each layer is
+recomputed in the backward pass as ``cfg.remat`` says.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 
@@ -24,8 +30,8 @@ from . import attention as attn_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import (embed, embed_specs, init_params, mlp, mlp_specs, norm,
-                     norm_spec, promote, unembed)
+from .layers import (cross_entropy, embed, embed_specs, init_params, mlp,
+                     mlp_specs, norm, norm_spec, promote, unembed)
 
 
 # ---------------------------------------------------------------------------
@@ -66,16 +72,17 @@ def model_specs(cfg):
 
 
 class ParamTree(nn.Module):
-    """Nested parameters that index like the JAX package's dict tree."""
+    """Nested parameters that index like the JAX package's dict tree.
+    ``requires_grad`` is off for serving and on for training."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, requires_grad: bool = False):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, dict):
-                self.add_module(k, ParamTree(v))
+                self.add_module(k, ParamTree(v, requires_grad))
             else:
-                self.register_parameter(k, nn.Parameter(v,
-                                                        requires_grad=False))
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=requires_grad))
 
     def __getitem__(self, k):
         return getattr(self, k)
@@ -88,19 +95,21 @@ class Model(nn.Module):
     """Parameters of one model: ``embed``, per-layer ``layers``, a dense
     ``layer0`` where the config has one, and ``final_norm``, built from a
     tree of tensors whose ``"layers"`` entry maps the layer index (as a
-    string) to that layer's parameters."""
+    string) to that layer's parameters.  ``requires_grad`` is off for
+    serving (the engine also runs under ``torch.inference_mode``) and on
+    for training."""
 
-    def __init__(self, cfg, params: dict):
+    def __init__(self, cfg, params: dict, requires_grad: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.embed = ParamTree(params["embed"])
+        self.embed = ParamTree(params["embed"], requires_grad)
         self.layers = nn.ModuleList(
-            ParamTree(params["layers"][str(i)])
+            ParamTree(params["layers"][str(i)], requires_grad)
             for i in range(n_scanned(cfg)))
         if cfg.first_dense_d_ff:
-            self.layer0 = ParamTree(params["layer0"])
+            self.layer0 = ParamTree(params["layer0"], requires_grad)
         self.final_norm = nn.Parameter(params["final_norm"],
-                                       requires_grad=False)
+                                       requires_grad=requires_grad)
 
     def __getitem__(self, k):
         return getattr(self, k)
@@ -110,12 +119,27 @@ class Model(nn.Module):
         return self.final_norm.device
 
 
-def init_model(cfg, seed: int = 0, device=None, dtype=torch.bfloat16):
+def param_tree(model: Model) -> dict:
+    """The model's parameters as a dict tree shaped like
+    :func:`model_specs` (``"layers"`` maps "0", "1", ... to each layer's
+    dict): the tree the optimizer, its state and the checkpoint use."""
+    def walk(m):
+        out = {k: walk(c) for k, c in m.named_children()}
+        out.update(m.named_parameters(recurse=False))
+        return out
+    t = walk(model)
+    t["layers"] = {str(i): t["layers"][str(i)]
+                   for i in range(n_scanned(model.cfg))}
+    return t
+
+
+def init_model(cfg, seed: int = 0, device=None, dtype=torch.bfloat16,
+               requires_grad: bool = False):
     """Random weights from the port's own init, drawn on ``device`` (the
     card unless the caller asks for the CPU) from a seeded generator."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
-    return Model(cfg, init_params(model_specs(cfg), g, dtype))
+    return Model(cfg, init_params(model_specs(cfg), g, dtype), requires_grad)
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +248,15 @@ def embed_inputs(params, cfg, batch):
 # ---------------------------------------------------------------------------
 IN_PLACE = ("k", "v", "ckv", "kr")   # cache entries decode writes in place
 
+# cfg.remat -> extra arguments of torch.utils.checkpoint.checkpoint.
+# "block" and "full" keep nothing of a layer (the JAX package's
+# nothing_saveable); "dots" keeps the outputs of the matrix products
+# without batch dims (dots_with_no_batch_dims_saveable: aten.mm / addmm,
+# not bmm) and recomputes the rest.
+_REMAT = {"dots": dict(context_fn=partial(
+    create_selective_checkpoint_contexts,
+    [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]))}
+
 
 def forward(params, cfg, batch, mode: str = "train", cache=None,
             positions=None, cache_len=None):
@@ -237,7 +270,10 @@ def forward(params, cfg, batch, mode: str = "train", cache=None,
              as new tensors.
     ``aux`` (the MoE load-balancing loss) is the mean over the layers of
     ``"layers"``: a dense layer 0 adds nothing and does not count, as in
-    the JAX package.
+    the JAX package.  In ``train`` mode with gradients on and
+    ``cfg.remat != "none"``, each layer runs under
+    ``torch.utils.checkpoint`` (as the JAX package's ``jax.checkpoint``),
+    so its kernels launch again in the backward pass.
     """
     assert mode in ("train", "prefill", "decode")
     if mode == "decode":
@@ -247,10 +283,14 @@ def forward(params, cfg, batch, mode: str = "train", cache=None,
         x, q_pos, _ = embed_inputs(params, cfg, batch)
 
     windows = cfg.layer_windows()
+    layer = partial(_layer, cfg)
+    if mode == "train" and cfg.remat != "none" and torch.is_grad_enabled():
+        layer = partial(checkpoint, layer, use_reentrant=False,
+                        **_REMAT.get(cfg.remat, {}))
     ncs, aux = [], 0.0
     for li, p in enumerate(_layer_params(params, cfg)):
         c = None if cache is None else {k: t[li] for k, t in cache.items()}
-        x, nc, a = _layer(cfg, p, x, q_pos, windows[li], c, cache_len, mode)
+        x, nc, a = layer(p, x, q_pos, windows[li], c, cache_len, mode)
         ncs.append(nc)
         aux = aux + a
 
@@ -381,3 +421,25 @@ def decode_unrolled(params, cfg, tokens, cache, positions):
         new_layers.append(nlc)
     x = norm(cfg, x, params["final_norm"])
     return unembed(params["embed"], cfg, x), {"layers": new_layers}
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def train_loss(params, cfg, batch, aux_coef: float = 0.01,
+               z_loss: float = 1e-4):
+    """Next-token loss (audio: masked-frame prediction of ``labels``;
+    vision: the text after the vision tokens) plus ``aux_coef`` times the
+    MoE load-balancing loss."""
+    logits, _, aux = forward(params, cfg, batch, mode="train")
+    if cfg.frontend == "audio":
+        loss = cross_entropy(logits, batch["labels"], mask=batch.get("mask"),
+                             z_loss=z_loss)
+    elif cfg.frontend == "vision":
+        nv = batch["vision"].shape[1]
+        loss = cross_entropy(logits[:, nv:-1], batch["tokens"][:, 1:],
+                             z_loss=z_loss)
+    else:
+        loss = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:],
+                             z_loss=z_loss)
+    return loss + aux_coef * aux

@@ -36,7 +36,10 @@ def test_importing_every_module_loads_no_jax_or_repro():
               "core.monitor", "obs.sinks", "obs.bridge", "obs.perfetto",
               "obs.dashboard", "ckpt", "ckpt.checkpoint", "dse.mux",
               "dse.search", "dse.search.driver", "dse.search.halving",
-              "dse.search.bo", "dse.search.warm"):
+              "dse.search.bo", "dse.search.warm", "optim", "optim.adamw",
+              "optim.compress", "data.pipeline", "train", "train.step",
+              "train.loop", "launch.train",
+              "kernels.flash_attention.autograd", "kernels.ssd.autograd"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
