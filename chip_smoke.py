@@ -123,13 +123,41 @@ Phases (each raises on failure, and the run then exits non-zero):
      bytes and seconds, a profiled step, each kernel's forward against
      its plain backward; (e) ``python -m repro_torch.launch.train`` on the
      card.
-Then the engine's, the DSE path's, the models', the sims', the search's
-and the training's JSON records, the kernels' JSON record (the line
-before the last; the launches add phase 7's model runs and phase 10's
-training to phase 3's), and ``{"ok": true, "device": {...}}`` as the
-last line.  ``python3 chip_smoke.py --engine`` runs phase 5 alone,
-``--dse`` phase 6, ``--models`` phases 1 and 7, ``--sims`` phase 8,
-``--search`` phase 9, ``--train`` phases 1 and 10.
+  11. scale-out: transparent parallel simulation and the campaign cache
+     (``repro_torch.core.pdes``, ``dse`` ``shard=``, ``dse.cache``) on a
+     mesh naming cuda:0 up to 8 times (``REPRO_TORCH_FORCE_DEVICES``; no
+     kernel: the reference's ``pmin`` and ``ppermute`` are a min and a
+     roll over the shard axis).  (a) build_sharded_memsys at 1, 2, 4 and
+     8 shards (2 tiles x 8 requests, until 3000), 4 shards with the
+     writers skewed, and 4 at the builder's defaults: window count, time,
+     stats and every leaf equal to PDES_REF (the JAX package's, one
+     forced host device a shard) and the whole state to the port's CPU
+     run, by bits; (b) 8 shards x 16 tiles x 96 requests (128 cores) to
+     completion against PDES_REF, with wall s, windows/s, cycles/s, the
+     exchange's share of the wall and one profiled window's kernels and
+     busy share; (c) phase 6's 256 points at shard=2 and 4, pipelined
+     and not, rows identical to shard=False and equal to SWEEP_REF, one
+     run_batch of 255 points padded to 256, lanes moved by the global
+     rebalance, configs/s of each; (d) phase 6's first 64 points (8x
+     shorter horizons) at shard=2 in two child processes sharing a fresh
+     REPRO_CACHE_DIR (started beside (a), released one after the other):
+     the second probes nothing, makes every rung before its first round,
+     same rows.
+To fit phase 11, the whole script runs the naive engine of phase 5 (a)
+on idle_half and mixed only (the other three patterns give mixed's
+results), phase 6 (a) as its pipelined sweep alone (phase 11 (c) holds
+the same rows through unpipelined sweeps and a padded run_batch), phase
+6 (c) at 64 requests a core (lane 0 against MEMSYS64_TRIMMED, the JAX
+package's row at that size), and phase 10 (e)'s subprocess beside phase 11 (a);
+``--engine`` and ``--dse`` run them whole.
+Then the engine's, the DSE path's, the models', the sims', the search's,
+the training's and the scale-out's JSON records, the kernels' JSON
+record (the line before the last; the launches add phase 7's model runs
+and phase 10's training to phase 3's), and ``{"ok": true, "device":
+{...}}`` as the last line.  ``python3 chip_smoke.py --engine`` runs phase
+5 alone, ``--dse`` phase 6, ``--models`` phases 1 and 7, ``--sims`` phase
+8, ``--search`` phase 9, ``--train`` phases 1 and 10, ``--scale`` phase
+11.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -270,8 +298,16 @@ MEMSYS_REF = {
 # Ticking to completion (JAX package on the CPU)
 # horizon of the eager K=1 run held against the graph (idle_half)
 MEMSYS_EAGER_UNTIL = 1000.0
+# the naive engine's patterns in the whole script (check_engine(trimmed));
+# the other three give mixed's results on both engines
+NAIVE_TRIMMED = ("idle_half", "mixed")
 MEMSYS64 = dict(n_cores=64, n_reqs=256, pattern="mixed", epochs=38121,
                 virtual_time=135940.0)
+# the same build at 64 requests a core (phase 6 (c) in the whole script):
+# the JAX package's row of one run on the CPU (tests/_shard_refs.py)
+MEMSYS64_TRIMMED = dict(n_cores=64, n_reqs=64, pattern="mixed",
+                        virtual_time=33988.0, epochs=9513, ticks=29889,
+                        progress_ticks=16448, delivered=16384)
 
 # phase 6: the batched lanes.  (a) 256 points of
 # benchmarks/dse_throughput.py's _points at memsys 16 cores x 96 requests
@@ -1161,12 +1197,15 @@ def _profile_block(sim, st0, mid):
                 b2b_device_us=b2b_dev)
 
 
-def check_engine():
+def check_engine(trimmed=False):
     """Phase 5: the Akita engine and memsys on the card.  (a) the five
     patterns at 16 cores and 96 requests, Smart Ticking and naive, against
-    MEMSYS_REF, with stat_err 0; idle_half's whole final state on the card
-    against the port's CPU run and against an eager K=1 run on the card;
-    (b) 64 cores and 256 requests a core, mixed, to completion."""
+    MEMSYS_REF, with stat_err 0 (``trimmed``, as the whole script runs it
+    since PR 19: the naive engine only on NAIVE_TRIMMED; compute, stream,
+    pointer and mixed give the same results, MEMSYS_REF's, on both
+    engines); idle_half's whole final state on the card against the
+    port's CPU run and against an eager K=1 run on the card; (b) 64 cores
+    and 256 requests a core, mixed, to completion."""
     import numpy as np
     import torch
     from repro_torch.sims import memsys as tm
@@ -1174,6 +1213,11 @@ def check_engine():
     t_phase = time.perf_counter()
     rec = {"patterns": {}}
     keep = {}
+    out_dir = ROOT / "build" / "engine"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("*.pt"):
+        f.unlink()
+    cpu_states = _CpuStates(out_dir, _engine_cpu_state)
     for pattern in MEMSYS_PATTERNS:
         ref = MEMSYS_REF[pattern]
         kw = dict(n_cores=16, pattern=pattern, n_reqs=96)
@@ -1185,10 +1229,21 @@ def check_engine():
             raise AssertionError(f"memsys {pattern}: horizon {horizon}, "
                                  f"want {ref['horizon']}")
         smart, dt_s = _timed_run(sim, st0, horizon)
+        got = {"smart": _memsys_stats(tm, sim, smart)}
+        if trimmed and pattern not in NAIVE_TRIMMED:
+            if got["smart"] != ref["smart"]:
+                raise AssertionError(f"memsys {pattern} smart: "
+                                     f"{got['smart']} != MEMSYS_REF "
+                                     f"{ref['smart']}")
+            rec["patterns"][pattern] = dict(
+                smart_s=dt_s, epochs=[got["smart"]["epochs"]])
+            log(f"memsys {pattern} 16 cores x 96 requests: smart "
+                f"{got['smart']['epochs']} epochs in {dt_s:.3f} s; "
+                f"MEMSYS_REF matched (naive not run in the whole script)")
+            continue
         simn, stn = tm.build(naive=True, **kw)
         naive, dt_n = _timed_run(simn, stn, horizon)
-        got = {"smart": _memsys_stats(tm, sim, smart),
-               "naive": _memsys_stats(tm, simn, naive)}
+        got["naive"] = _memsys_stats(tm, simn, naive)
         for mode in ("smart", "naive"):
             if got[mode] != ref[mode]:
                 raise AssertionError(f"memsys {pattern} {mode}: "
@@ -1213,12 +1268,14 @@ def check_engine():
             keep = dict(sim=sim, st0=st0, smart=smart, horizon=horizon)
 
     # idle_half, Smart Ticking: the card's state against the port's CPU
-    # run and against an eager K=1 run of the same block on the card
+    # run (a child process's, made while the card ran the patterns) and
+    # against an eager K=1 run of the same block on the card
     kw = dict(n_cores=16, pattern="idle_half", n_reqs=96)
-    sim_c, st_c = tm.build(device="cpu", **kw)
-    t = time.perf_counter()
-    cpu = sim_c.run(st_c, until=keep["horizon"])
-    dt_cpu = time.perf_counter() - t
+    try:
+        got = cpu_states.get("idle_half")
+    finally:
+        cpu_states.close()
+    cpu, dt_cpu = got["state"], got["seconds"]
     bad = _state_diff(keep["smart"], cpu)
     if bad:
         raise AssertionError(f"idle_half: card and CPU states differ at "
@@ -1301,6 +1358,22 @@ def _card():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+TRIMMED_REQS64 = 64      # phase 6 (c)'s requests a core in the whole script
+_SWEEP_BUILD: list = []
+_SWEEP_UNSHARDED: dict = {}    # phase 6 (a)'s pipelined rows and record
+
+
+def _sweep_build():
+    """Phase 6's 16-core x 96-request memsys build, made once a process:
+    phase 11 (c) sweeps the same simulation, whose ladder phase 6 has
+    already captured."""
+    if not _SWEEP_BUILD:
+        from repro_torch.sims import memsys as tm
+        _SWEEP_BUILD.append(tm.build(n_cores=16, pattern="mixed",
+                                     n_reqs=96))
+    return _SWEEP_BUILD[0]
 
 
 def _dse_points(b):
@@ -1415,12 +1488,15 @@ def _lane_block_profile(sim, st, pts):
                 kernels_per_epoch=n / K)
 
 
-def check_dse():
+def check_dse(trimmed=False):
     """Phase 6: the batched lanes (repro_torch.dse) on the card.  (a) 256
     points at memsys 16 cores x 96 requests, per-lane horizons, through
     run_sweep (autotuner and depth-2 pipeline), run_sweep(pipeline=False)
     and one monolithic run_batch: identical rows, equal to SWEEP_REF, and
-    lanes 0, 85, 170 and 255 equal to single runs, whole states by bits;
+    lanes 0, 85, 170 and 255 equal to single runs, whole states by bits
+    (``trimmed``, as the whole script runs it since PR 19 to fit phase 11:
+    the pipelined sweep alone, whose rows and states phase 11 (c) holds
+    against sharded unpipelined sweeps and a padded run_batch);
     a block's time and kernels at 1 lane and at the top rung; 4 single
     runs as the sequential baseline.  (b) the shape.core family, 15 rows,
     against SWEEP_REF.  (c) 32 lanes at 64 cores x 256 requests, lane 0
@@ -1434,7 +1510,7 @@ def check_dse():
     rec = {"card": card}
 
     # (a) sweep-256
-    sim, st = tm.build(n_cores=16, pattern="mixed", n_reqs=96)
+    sim, st = _sweep_build()
     pts = _dse_points(256)
     u = _dse_untils(256, MEMSYS_REF["mixed"]["horizon"])
     spec = dse.SweepSpec.explicit(pts)
@@ -1446,23 +1522,27 @@ def check_dse():
     (rows_p, states), rec["rounds"] = _timed_sweep(
         "sweep-256 run_sweep (autotune, pipelined)", card, runner, warm,
         lambda: dse.run_sweep(build_fn, spec, until=u, return_states=True))
-    rows_s, rec["rounds_unpipelined"] = _timed_sweep(
-        "sweep-256 run_sweep(pipeline=False)", card, runner, warm,
-        lambda: dse.run_sweep(build_fn, spec, until=u, pipeline=False))
+    _SWEEP_UNSHARDED.update(rows=rows_p, rec=rec["rounds"])
+    lanes = [("run_sweep", states.state)]
+    if not trimmed:
+        rows_s, rec["rounds_unpipelined"] = _timed_sweep(
+            "sweep-256 run_sweep(pipeline=False)", card, runner, warm,
+            lambda: dse.run_sweep(build_fn, spec, until=u, pipeline=False))
 
-    def mono():
-        out = runner.run_batch(dse.stack_states(st, len(pts)), pb, u)
-        rows = [dict(p, **r) for p, r in zip(
-            pts, dse.extract_rows(sim, out, len(pts)))]
-        return rows, out
-    (rows_m, out_m), rec["monolithic"] = _timed_sweep(
-        "sweep-256 one run_batch", card, runner, warm, mono)
-    if not rows_p == rows_s == rows_m:
-        raise AssertionError("sweep-256: pipelined rounds, unpipelined "
-                             "rounds and run_batch give different rows")
-    _check_rows("sweep-256", rows_m, SWEEP_REF["sweep256"])
-    log(f"sweep-256: the three runs give identical rows, equal to "
-        f"SWEEP_REF ({len(rows_m)} rows)")
+        def mono():
+            out = runner.run_batch(dse.stack_states(st, len(pts)), pb, u)
+            rows = [dict(p, **r) for p, r in zip(
+                pts, dse.extract_rows(sim, out, len(pts)))]
+            return rows, out
+        (rows_m, out_m), rec["monolithic"] = _timed_sweep(
+            "sweep-256 one run_batch", card, runner, warm, mono)
+        if not rows_p == rows_s == rows_m:
+            raise AssertionError("sweep-256: pipelined rounds, unpipelined "
+                                 "rounds and run_batch give different rows")
+        lanes.append(("run_batch", lambda i: dse.lane(out_m, i)))
+    _check_rows("sweep-256", rows_p, SWEEP_REF["sweep256"])
+    log(f"sweep-256: {'the pipelined run' if trimmed else 'the three runs'}"
+        f" give identical rows, equal to SWEEP_REF ({len(rows_p)} rows)")
 
     # lanes against single runs, which are also the sequential baseline
     base = sim.default_params()
@@ -1476,24 +1556,23 @@ def check_dse():
         one = sim.run(sim.copy_state(st), until=float(u[i]), params=p)
         torch.cuda.synchronize()
         seq_s += time.perf_counter() - t
-        for what, lane in (("run_batch", dse.lane(out_m, i)),
-                           ("run_sweep", states.state(i))):
-            bad = _state_diff(lane, one)
+        for what, get in lanes:
+            bad = _state_diff(get(i), one)
             if bad:
                 raise AssertionError(f"sweep-256 lane {i} ({what}) and a "
                                      f"single run differ at {bad}")
     seq_rate = len(DSE_SAMPLED) / seq_s
     rec["sequential"] = dict(runs=len(DSE_SAMPLED), wall_s=seq_s,
                              configs_per_s=seq_rate)
-    for k in ("rounds", "rounds_unpipelined", "monolithic"):
+    runs = [k for k in ("rounds", "rounds_unpipelined", "monolithic")
+            if k in rec]
+    for k in runs:
         rec[k]["batching_ratio"] = rec[k]["configs_per_s"] / seq_rate
     log(f"[{card}] sequential baseline: lanes {DSE_SAMPLED} as single runs "
         f"in {seq_s:.3f} s ({seq_rate:.3f} configs/s); each equals its "
-        f"lane of run_batch and of run_sweep, whole state, f32 by bits; "
-        f"batching ratio {rec['rounds']['batching_ratio']:.1f}x (pipelined "
-        f"rounds), {rec['rounds_unpipelined']['batching_ratio']:.1f}x "
-        f"(unpipelined), {rec['monolithic']['batching_ratio']:.1f}x "
-        f"(run_batch)")
+        f"lane of {' and of '.join(w for w, _ in lanes)}, whole state, f32 "
+        f"by bits; batching ratio " + ", ".join(
+            f"{rec[k]['batching_ratio']:.1f}x ({k})" for k in runs))
     top = rec["rounds"]["chunk"]
     rec["block"] = [_lane_block_profile(sim, st, pts[:b]) for b in (1, top)]
     for blk in rec["block"]:
@@ -1519,28 +1598,41 @@ def check_dse():
     _check_rows("family", rows_f, SWEEP_REF["family"])
     log(f"family: {len(rows_f)} rows equal to SWEEP_REF")
 
-    # (c) 64 cores x 256 requests, 32 lanes
+    # (c) 64 cores x 256 requests (TRIMMED_REQS64 trimmed), 32 lanes
     ref64 = MEMSYS64
+    n_reqs = TRIMMED_REQS64 if trimmed else ref64["n_reqs"]
     sim64, st64 = tm.build(n_cores=ref64["n_cores"], pattern=ref64["pattern"],
-                           n_reqs=ref64["n_reqs"])
+                           n_reqs=n_reqs)
     pts64 = [{"conn_latency[-1]": 30.0}] + [
         {"conn_latency[-1]": 10.0 + 30.0 * i / 31} for i in range(1, 32)]
     runner64 = dse.runner_for(sim64)
     pb64 = dse.build_param_batch(sim64, pts64)
-    rows64, rec["full_width"] = _timed_sweep(
-        "64 cores x 256 requests, 32 lanes", card, runner64,
+    (rows64, states64), rec["full_width"] = _timed_sweep(
+        f"64 cores x {n_reqs} requests, 32 lanes", card, runner64,
         lambda: runner64.warm_ladder(st64, pb64,
                                      dse.make_ladder(len(pts64))),
         lambda: dse.run_sweep(dse.memoize_build(lambda: (sim64, st64)),
-                              dse.SweepSpec.explicit(pts64), until=1e6))
+                              dse.SweepSpec.explicit(pts64), until=1e6,
+                              return_states=True))
+    rec["full_width"]["n_reqs"] = n_reqs
     got = (rows64[0]["epochs"], rows64[0]["virtual_time"])
-    if got != (ref64["epochs"], ref64["virtual_time"]):
-        raise AssertionError(f"64 cores, lane 0 (the build's defaults): "
-                             f"epochs and virtual time {got}, want "
-                             f"MEMSYS64's {ref64['epochs']} and "
-                             f"{ref64['virtual_time']}")
-    log(f"64 cores: lane 0 equals MEMSYS64 ({got[0]} epochs, virtual time "
-        f"{got[1]})")
+    if not trimmed:
+        if got != (ref64["epochs"], ref64["virtual_time"]):
+            raise AssertionError(f"64 cores, lane 0 (the build's "
+                                 f"defaults): epochs and virtual time "
+                                 f"{got}, want MEMSYS64's {ref64['epochs']}"
+                                 f" and {ref64['virtual_time']}")
+        log(f"64 cores: lane 0 equals MEMSYS64 ({got[0]} epochs, virtual "
+            f"time {got[1]})")
+    else:
+        want = {c: MEMSYS64_TRIMMED[c] for c in DSE_ROW}
+        row = {c: rows64[0][c] for c in DSE_ROW}
+        if row != want:
+            raise AssertionError(f"64 cores x {n_reqs}, lane 0 (the "
+                                 f"build's defaults): {row}, want "
+                                 f"MEMSYS64_TRIMMED's {want}")
+        log(f"64 cores x {n_reqs}: lane 0 equals MEMSYS64_TRIMMED, the JAX "
+            f"package's row ({got[0]} epochs, virtual time {got[1]})")
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"[{card}] phase 6 (dse) took {rec['phase_s']:.1f} s")
     return rec
@@ -2158,6 +2250,23 @@ def _trio_name(key):
     return f"{arch} dp{dp} tp{tp} pp{pp}"
 
 
+def _engine_cpu_state(out_dir):
+    """Child process of phase 5: the port's CPU run of idle_half, Smart
+    Ticking, 16 cores x 96 requests, to MEMSYS_REF's horizon."""
+    import os
+
+    import torch
+    from repro_torch.sims import memsys as tm
+    torch.set_num_threads(2)
+    sim, st = tm.build(device="cpu", n_cores=16, pattern="idle_half",
+                       n_reqs=96)
+    t = time.perf_counter()
+    out = sim.run(st, until=MEMSYS_REF["idle_half"]["horizon"])
+    tmp = Path(out_dir) / ".idle_half.tmp"
+    torch.save(dict(state=out, seconds=time.perf_counter() - t), tmp)
+    os.replace(tmp, Path(out_dir) / "idle_half.pt")
+
+
 def _cpu_final_states(out_dir):
     """Child process of phase 8: the port's CPU final states that the
     card's are held against (onira's microbenchmarks, then each
@@ -2189,11 +2298,12 @@ class _CpuStates:
     """The port's CPU final states, computed by a spawned child process
     while the card works, so that the CPU runs cost phase 8 no time."""
 
-    def __init__(self, out_dir):
+    def __init__(self, out_dir, target=None):
         import multiprocessing
         self.dir = out_dir
         self.proc = multiprocessing.get_context("spawn").Process(
-            target=_cpu_final_states, args=(str(out_dir),), daemon=True)
+            target=target or _cpu_final_states, args=(str(out_dir),),
+            daemon=True)
         self.proc.start()
 
     def get(self, name, timeout=900.0):
@@ -3539,32 +3649,47 @@ def train_hymba(dev, gen):
     return rec
 
 
-def check_launch_train():
+class LaunchTrain:
     """(e) ``python -m repro_torch.launch.train`` on the card, as a user
-    runs it."""
-    import os
-    import shutil
-    out_dir = ROOT / "build" / "train" / "launch"
-    shutil.rmtree(out_dir, ignore_errors=True)
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           "hymba-1.5b", "--smoke", "--steps", "4", "--batch", "2", "--seq",
-           "64", "--ckpt", str(out_dir), "--no-resume"]
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    t = time.perf_counter()
-    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                         text=True, timeout=600)
-    wall = time.perf_counter() - t
-    shutil.rmtree(out_dir, ignore_errors=True)
-    log(out.stdout.strip())
-    if out.returncode != 0 or "done: loss" not in out.stdout:
-        raise AssertionError(f"launch.train exited {out.returncode}: "
-                             f"{out.stderr[-2000:]}")
-    return dict(rc=out.returncode, wall_s=wall,
-                done=out.stdout.strip().splitlines()[-1])
+    runs it: started when made, held by ``finish``.  The whole script
+    finishes it beside phase 11 (a) (since PR 19, to fit phase 11)."""
+
+    def __init__(self):
+        import os
+        import shutil
+        self.dir = ROOT / "build" / "train" / "launch"
+        shutil.rmtree(self.dir, ignore_errors=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "hymba-1.5b", "--smoke", "--steps", "4", "--batch", "2",
+               "--seq", "64", "--ckpt", str(self.dir), "--no-resume"]
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        self.t = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+
+    def finish(self):
+        import shutil
+        try:
+            out, err = self.proc.communicate(timeout=600)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.communicate()
+        wall = time.perf_counter() - self.t
+        shutil.rmtree(self.dir, ignore_errors=True)
+        log(out.strip())
+        if self.proc.returncode != 0 or "done: loss" not in out:
+            raise AssertionError(f"launch.train exited "
+                                 f"{self.proc.returncode}: {err[-2000:]}")
+        return dict(rc=self.proc.returncode, wall_s=wall,
+                    done=out.strip().splitlines()[-1])
 
 
-def check_train(dev):
-    """Phase 10: training on the card."""
+def check_train(dev, launch=None):
+    """Phase 10: training on the card.  ``launch`` (a list) takes the
+    running (e) instead of waiting for it: the whole script finishes it
+    in phase 11."""
     import torch
     card = _card()
     t_phase = time.perf_counter()
@@ -3589,7 +3714,10 @@ def check_train(dev):
     rec["f32_launches"] = f32
     rec["c"] = part("c", check_resume, dev)
     rec["d"] = part("d", train_hymba, dev, gen)
-    rec["e"] = part("e", check_launch_train)
+    if launch is None:
+        rec["e"] = part("e", lambda: LaunchTrain().finish())
+    else:
+        launch.append(LaunchTrain())
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"[{card}] phase 10 (train) took {rec['phase_s']:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
@@ -3597,6 +3725,610 @@ def check_train(dev):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+# (a) the sharded conservative PDES (repro_torch.core.pdes) on
+# build_sharded_memsys: the reference tests' cell (2 tiles x 8 requests a
+# shard, until 3000) at 1, 2, 4 and 8 shards, and 4 shards at the
+# builder's defaults (4 tiles x 32 requests); (b) 8 shards x 16 tiles x 96
+# requests (128 cores and 8 remote writers; phase 5's 16 x 96 tile on
+# every shard) to completion.  PDES_REF: the JAX package's runs on the CPU
+# with as many forced host devices as shards (pdes_summary of the final
+# state: windows, per-shard time, stats, DRAM reads and writer backlog,
+# and the sha256 of every leaf); CHANGES.md has the command that made it.
+PDES_CASES = {
+    "s1": dict(n_shards=1, tiles_per_shard=2, n_reqs=8, until=3000.0),
+    "s2": dict(n_shards=2, tiles_per_shard=2, n_reqs=8, until=3000.0),
+    "s4": dict(n_shards=4, tiles_per_shard=2, n_reqs=8, until=3000.0),
+    "s8": dict(n_shards=8, tiles_per_shard=2, n_reqs=8, until=3000.0),
+    "s4_default": dict(n_shards=4, tiles_per_shard=4, n_reqs=32,
+                       until=3000.0),
+    "s4_skew": dict(n_shards=4, tiles_per_shard=2, n_reqs=8, until=3000.0,
+                    skew=True),
+    "big": dict(n_shards=8, tiles_per_shard=16, n_reqs=96, until=1e6),
+}
+PDES_REF = {
+    "s1": dict(
+        windows=18, time=[310.0], epochs=[97], ticks=[152],
+        progress_ticks=[74], delivered=[80], served=[16],
+        writer_remaining=[0], core_remaining=[0],
+        sha256="c15cd3789aed838349cf59e66d8b5381"
+               "50e8e58e4b2eed8a82a7004a6da39fb3"),
+    "s2": dict(
+        windows=18, time=[310.0, 310.0], epochs=[97, 97], ticks=[152, 152],
+        progress_ticks=[74, 74], delivered=[80, 80], served=[16, 16],
+        writer_remaining=[0, 0], core_remaining=[0, 0],
+        sha256="18964586722879d01c8d15038bf44364"
+               "00857f3aa24dbca3986deb2bc8110dc0"),
+    "s4": dict(
+        windows=18, time=[310.0, 310.0, 310.0, 310.0], epochs=[97, 97, 97,
+        97], ticks=[152, 152, 152, 152], progress_ticks=[74, 74, 74, 74],
+        delivered=[80, 80, 80, 80], served=[16, 16, 16, 16],
+        writer_remaining=[0, 0, 0, 0], core_remaining=[0, 0, 0, 0],
+        sha256="e6214471dc4bee57e82241aab1fcb3eb"
+               "1e91e66f16d78ab4519013f275862da5"),
+    "s8": dict(
+        windows=18, time=[310.0, 310.0, 310.0, 310.0, 310.0, 310.0, 310.0,
+        310.0], epochs=[97, 97, 97, 97, 97, 97, 97, 97], ticks=[152, 152, 152,
+        152, 152, 152, 152, 152], progress_ticks=[74, 74, 74, 74, 74, 74, 74,
+        74], delivered=[80, 80, 80, 80, 80, 80, 80, 80], served=[16, 16, 16,
+        16, 16, 16, 16, 16], writer_remaining=[0, 0, 0, 0, 0, 0, 0, 0],
+        core_remaining=[0, 0, 0, 0, 0, 0, 0, 0],
+        sha256="c71e381675b5ebbdd56c2b4427e02daa"
+               "a9551e3c8b971ac65f024d5e320a6112"),
+    "s4_default": dict(
+        windows=98, time=[1222.0, 1222.0, 1222.0, 1222.0], epochs=[475, 475,
+        475, 475], ticks=[1014, 1014, 1014, 1014], progress_ticks=[548, 548,
+        548, 548], delivered=[552, 552, 552, 552], served=[128, 128, 128,
+        128], writer_remaining=[0, 0, 0, 0], core_remaining=[0, 0, 0, 0],
+        sha256="c0546f0784731e552b000a5c4ae7c1d2"
+               "c25a8171df6dc3d179392f662687258a"),
+    "s4_skew": dict(
+        windows=18, time=[310.0, 310.0, 310.0, 310.0], epochs=[93, 97, 94,
+        92], ticks=[149, 150, 147, 144], progress_ticks=[74, 73, 72, 71],
+        delivered=[77, 79, 77, 75], served=[16, 16, 16, 16],
+        writer_remaining=[0, 0, 0, 0], core_remaining=[0, 0, 0, 0],
+        sha256="0dc7748a6f9cae18099a5adbd0939ae6"
+               "129b1ed9e24ffc8f2ad4a5b207ff3e80"),
+    "big": dict(
+        windows=390, time=[3679.0, 3679.0, 3679.0, 3679.0, 3679.0, 3679.0,
+        3679.0, 3679.0], epochs=[2545, 2545, 2545, 2545, 2545, 2545, 2545,
+        2545], ticks=[11194, 11194, 11194, 11194, 11194, 11194, 11194, 11194],
+        progress_ticks=[6256, 6256, 6256, 6256, 6256, 6256, 6256, 6256],
+        delivered=[6248, 6248, 6248, 6248, 6248, 6248, 6248, 6248],
+        served=[1536, 1536, 1536, 1536, 1536, 1536, 1536, 1536],
+        writer_remaining=[0, 0, 0, 0, 0, 0, 0, 0], core_remaining=[0, 0, 0, 0,
+        0, 0, 0, 0],
+        sha256="155110861531078a729360fa784be325"
+               "f5adb5947d83211b9cdb9855cd307763"),
+}
+
+
+def pdes_skew(n_shards, n_reqs):
+    """The ``skew`` cases' per-shard writer state, as numpy arrays: shard
+    i writes ``n_reqs - i`` times from address ``i << 16``, so every
+    shard differs and each DRAM's remote port holds its left neighbour's
+    addresses (a rotation the wrong way shows)."""
+    import numpy as np
+    i = np.arange(n_shards, dtype=np.int32)[:, None]
+    return {"remaining": (n_reqs - i).astype(np.int32),
+            "addr": (i << 16).astype(np.int32)}
+
+
+def pdes_summary(leaves, windows):
+    """A sharded final state (leaves as numpy arrays keyed by path, either
+    package's) reduced to what PDES_REF holds: the window count, each
+    shard's time, stats, DRAM reads and writer backlog, and the sha256 of
+    every leaf's path, dtype, shape and bytes (f32 by its bits)."""
+    import hashlib
+
+    import numpy as np
+    h = hashlib.sha256()
+    for k in sorted(leaves):
+        a = np.ascontiguousarray(leaves[k])
+        h.update(f"{k}|{a.dtype.str}|{a.shape}|".encode())
+        h.update(a.tobytes())
+    per = lambda k: [int(x) for x in np.asarray(leaves[k]).reshape(
+        len(leaves["time"]), -1).sum(axis=1)]
+    return dict(windows=int(windows),
+                time=[float(x) for x in leaves["time"]],
+                epochs=per("stats.epochs"), ticks=per("stats.ticks"),
+                progress_ticks=per("stats.progress_ticks"),
+                delivered=per("stats.delivered"),
+                served=per("comp_state.dram.served"),
+                writer_remaining=per("comp_state.writer.remaining"),
+                core_remaining=per("comp_state.core.remaining"),
+                sha256=h.hexdigest())
+
+
+PDES_A = ("s1", "s2", "s4", "s8", "s4_default", "s4_skew")
+SCALE_PLACEMENTS = 8       # phase 11's mesh: cuda:0 named up to 8 times
+SCALE_SHARDS = (2, 4)      # (c)'s shard= values
+SCALE_PROFILED_WINDOW = 50     # (b)'s window under torch.profiler
+SCALE_TIMED_WINDOWS = 100      # (b)'s instrumented run: its first windows
+
+
+def _pdes_build(name, mesh):
+    """build_sharded_memsys for a PDES_CASES entry on ``mesh``, its
+    initial state (the writers skewed where the case says so) and its
+    horizon."""
+    import torch
+    from repro_torch.sims import memsys as tm
+    c = dict(PDES_CASES[name])
+    until, skew = c.pop("until"), c.pop("skew", False)
+    ss = tm.build_sharded_memsys(mesh=mesh, **c)
+    st = ss.init_state()
+    if skew:
+        for k, v in pdes_skew(c["n_shards"], c["n_reqs"]).items():
+            st.comp_state["writer"][k] = torch.from_numpy(v).to(
+                st.time.device)
+    return ss, st, until
+
+
+def _pdes_summary(out, w):
+    return pdes_summary({k: v.cpu().numpy() for k, v in _leaves(out).items()},
+                        w)
+
+
+def _pdes_held(name, out, w):
+    got = _pdes_summary(out, w)
+    ref = PDES_REF[name]
+    if got != ref:
+        raise AssertionError(f"PDES {name}: " + ", ".join(
+            f"{k} {got[k]!r} != {ref[k]!r}" for k in ref if got[k] != ref[k]))
+
+
+def _pdes_cpu_states(out_dir):
+    """Child process of phase 11: the port's CPU final states of the (a)
+    cases, each on a mesh of as many CPU placements as shards."""
+    import os
+
+    import torch
+    torch.set_num_threads(2)
+    for name in PDES_A:
+        n = PDES_CASES[name]["n_shards"]
+        ss, st, until = _pdes_build(name, (torch.device("cpu"),) * n)
+        tmp = Path(out_dir) / f".pdes_{name}.tmp"
+        torch.save(ss.run(st, until=until), tmp)
+        os.replace(tmp, Path(out_dir) / f"pdes_{name}.pt")
+
+
+def check_pdes_parity(card, states):
+    """Phase 11 (a): every case of PDES_A on a mesh naming cuda:0 once a
+    shard, against PDES_REF; the first run makes the block (a capture),
+    the second is timed.  Each final state goes into ``states``, which
+    ``check_pdes_cpu`` holds against the port's CPU runs."""
+    import torch
+    from repro_torch.launch.mesh import make_sim_mesh
+    rec = {}
+    for name in PDES_A:
+        n = PDES_CASES[name]["n_shards"]
+        ss, st, until = _pdes_build(name, make_sim_mesh(n))
+        t = time.perf_counter()
+        out, w = ss.run(st, until=until, return_windows=True)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t
+        _pdes_held(name, out, w)
+        states[name] = out
+        t = time.perf_counter()
+        out2, w2 = ss.run(st, until=until, return_windows=True)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t
+        if w2 != w or _state_diff(out2, out):
+            raise AssertionError(f"PDES {name}: a second run differs")
+        rec[name] = dict(shards=n, placements=len(ss.mesh), windows=w,
+                         time=float(out.time[0]), cold_s=cold, wall_s=warm)
+        log(f"[{card}] PDES {name}: {n} shards on {len(ss.mesh)} "
+            f"placements of {ss.mesh[0]}, {w} windows to time "
+            f"{float(out.time[0])}, equal to PDES_REF; {cold:.3f} s with "
+            f"the block's capture, {warm:.3f} s after")
+    return rec
+
+
+def check_pdes_cpu(card, states, cpu):
+    """Phase 11 (a), continued: each card state against the port's CPU run
+    of the same case (a child process's, made while the card worked),
+    whole state by bits."""
+    for name, out in states.items():
+        bad = _state_diff(out, cpu.get(f"pdes_{name}"))
+        if bad:
+            raise AssertionError(f"PDES {name}: the card's and the CPU's "
+                                 f"final states differ at {bad}")
+    log(f"[{card}] PDES: the card's final states of {list(states)} equal "
+        f"the port's CPU runs, whole state, f32 by bits")
+
+
+def _profile_window(ss, blocks, t_glob, horizon, step):
+    """One window traced on the device alone (torch.profiler's CUDA
+    activity): its kernels, their busy time (the union of their
+    intervals) and the traced wall.  Tracing stretches a window of ~6,000
+    graph kernels many times over, so the busy share is read from CUDA
+    events instead (check_pdes_big)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(blocks, t_glob, horizon)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e6
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        raise AssertionError("torch.profiler saw no kernel in a window")
+    busy, end_t = 0.0, float("-inf")
+    for e in sorted(kern, key=lambda e: e.time_range.start):
+        lo, hi = max(e.time_range.start, end_t), e.time_range.end
+        busy += max(0.0, hi - lo)
+        end_t = max(end_t, hi)
+    span = end_t - min(e.time_range.start for e in kern)
+    return dict(kernels=len(kern), busy_us=busy, span_us=span,
+                traced_wall_us=wall)
+
+
+def _replay_ms(blk, reps=5):
+    """Device time of one replay of a block's graph: CUDA events around
+    ``reps`` replays back to back (a replay runs every epoch whether or
+    not a lane is live, so a finished state times as a live one does)."""
+    import torch
+    blk.graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        blk.graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_pdes_big(card):
+    """Phase 11 (b): 8 shards x 16 tiles x 96 requests on a mesh naming
+    cuda:0 8 times, to completion, against PDES_REF["big"]: a clean timed
+    run, then its first SCALE_TIMED_WINDOWS windows again with the
+    exchange timed apart (a sync on each side), the block steps counted and window
+    SCALE_PROFILED_WINDOW traced on the device.  The device-busy share of a window is the block replays'
+    device time (CUDA events) over the clean run's mean window; the
+    exchange's ~40 small kernels are left out of it, so it is a lower
+    bound."""
+    import torch
+    from repro_torch.launch.mesh import make_sim_mesh
+    ss, st, until = _pdes_build("big", make_sim_mesh(8))
+    t = time.perf_counter()
+    ss.run(st, until=-1.0)                  # makes (captures) the block
+    torch.cuda.synchronize()
+    cap_s = time.perf_counter() - t
+    t = time.perf_counter()
+    out, w = ss.run(st, until=until, return_windows=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    _pdes_held("big", out, w)
+    vt = float(out.time[0])
+
+    exch = dict(s=0.0)
+    step, exchange = ss._step_window, ss._exchange
+    prof, n = {}, dict(w=0)
+
+    def timed_exchange(blocks, t_end):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exchange(blocks, t_end)
+        torch.cuda.synchronize()
+        exch["s"] += time.perf_counter() - t0
+
+    def counted_step(blocks, t_glob, horizon):
+        n["w"] += 1
+        if n["w"] == SCALE_PROFILED_WINDOW:
+            prof.update(_profile_window(ss, blocks, t_glob, horizon, step))
+        else:
+            step(blocks, t_glob, horizon)
+    (blk,) = ss.sim._lane_blocks.values()
+    replay = blk.step
+    steps = dict(n=0)
+
+    def counted_replay():
+        steps["n"] += 1
+        replay()
+    ss._exchange, ss._step_window = timed_exchange, counted_step
+    blk.step = counted_replay
+    try:
+        t = time.perf_counter()
+        _, w2 = ss.run(st, until=until, max_windows=SCALE_TIMED_WINDOWS,
+                       return_windows=True)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t
+    finally:
+        del ss._exchange, ss._step_window, blk.step
+    block_ms = _replay_ms(blk)
+    window_ms = wall / w * 1e3
+    busy = steps["n"] / w2 * block_ms / window_ms
+    rec = dict(shards=8, tiles_per_shard=16, n_reqs=96, cores=128,
+               windows=w, virtual_time=vt, capture_s=cap_s, wall_s=wall,
+               windows_per_s=w / wall, cycles_per_s=vt / wall,
+               instrumented_windows=w2, instrumented_wall_s=wall2,
+               exchange_s=exch["s"],
+               exchange_share=exch["s"] / wall2,
+               block=dict(epochs=ss.sim.super_epoch, lanes=blk.b,
+                          replay_ms=block_ms,
+                          steps_per_window=steps["n"] / w2),
+               window=dict(prof, number=SCALE_PROFILED_WINDOW,
+                           mean_ms=window_ms, busy_share=busy))
+    log(f"[{card}] PDES big: 8 shards x 16 tiles x 96 requests (128 cores, "
+        f"8 writers) equal to PDES_REF: {w} windows to time {vt} in "
+        f"{wall:.3f} s ({rec['windows_per_s']:.1f} windows/s, "
+        f"{rec['cycles_per_s']:.1f} cycles/s; the block's capture "
+        f"{cap_s:.3f} s apart); its first {w2} windows again with the "
+        f"exchange timed apart: {wall2:.3f} s, of which the exchange "
+        f"{exch['s']:.3f} s "
+        f"({100 * rec['exchange_share']:.1f}%); a window "
+        f"{window_ms:.3f} ms, {steps['n'] / w2:.3f} block steps of "
+        f"{block_ms:.3f} ms device time each (K={ss.sim.super_epoch}, "
+        f"{blk.b} lanes; CUDA events): the device busy at least "
+        f"{100 * busy:.1f}% of a window; window "
+        f"{SCALE_PROFILED_WINDOW} traced on the device: {prof['kernels']} "
+        f"kernels, busy {prof['busy_us']:.0f} us of a traced wall of "
+        f"{prof['traced_wall_us']:.0f} us")
+    return rec
+
+
+def check_sharded_lanes(card):
+    """Phase 11 (c): phase 6's 256 points at shard=False (phase 6 (a)'s
+    pipelined run when it ran in this process: the same simulation and
+    points), then shard=2 and 4 on the mesh (pipelined and not) through
+    run_sweep: identical rows, equal to SWEEP_REF; one run_batch of 255
+    points at shard=4 (padded to 256) equal to the first 255 rows;
+    shard.rebalance events that move lanes; configs/s of each.  Returns
+    the record."""
+    from repro_torch import dse
+    from repro_torch.obs.bus import capture
+    from repro_torch.sims import memsys as tm
+    sim, st = _sweep_build()
+    pts = _dse_points(256)
+    u = _dse_untils(256, MEMSYS_REF["mixed"]["horizon"])
+    spec = dse.SweepSpec.explicit(pts)
+    build_fn = dse.memoize_build(lambda: (sim, st))
+    runner = dse.runner_for(sim)
+    pb = dse.build_param_batch(sim, pts)
+    ladder = dse.make_ladder(len(pts))
+    rec, moved = {}, {}
+    runs = [(f"shard{d}" + ("" if pipe else "_unpipelined"), d, pipe)
+            for d in SCALE_SHARDS for pipe in (True, False)]
+    rows0 = _SWEEP_UNSHARDED.get("rows")
+    if rows0 is None:
+        runs.insert(0, ("unsharded", False, None))
+    else:
+        rec["unsharded"] = dict(_SWEEP_UNSHARDED["rec"], phase=6,
+                                lanes_moved=0)
+        moved["unsharded"] = 0
+    for key, d, pipe in runs:
+        with capture() as sink:
+            rows, rec[key] = _timed_sweep(
+                f"scale sweep-256 {key}", card, runner,
+                lambda: runner.warm_ladder(st, pb, ladder, shard=d),
+                lambda: dse.run_sweep(build_fn, spec, until=u, shard=d,
+                                      pipeline=pipe))
+        ev = [e for e in sink.events if e["kind"] == "shard.rebalance"]
+        moved[key] = sum(e["moved"] for e in ev)
+        rec[key].update(shard=d or 1, rebalances=len(ev),
+                        lanes_moved=moved[key])
+        if rows0 is None:
+            rows0 = rows
+        elif rows != rows0:
+            raise AssertionError(f"sweep-256 {key}: rows differ from "
+                                 "shard=False")
+        _check_rows(f"scale sweep-256 {key}", rows, SWEEP_REF["sweep256"])
+    if not sum(moved.values()):
+        raise AssertionError(f"no shard.rebalance event moved a lane: "
+                             f"{moved}")
+
+    def mono():
+        out = runner.run_batch(dse.stack_states(st, 255),
+                               dse.build_param_batch(sim, pts[:255]),
+                               u[:255], shard=max(SCALE_SHARDS))
+        return [dict(p, **r) for p, r in zip(
+            pts, dse.extract_rows(sim, out, 255))]
+    rows_m, rec["run_batch255"] = _timed_sweep(
+        "scale run_batch 255 points shard=4 (padded to 256)", card, runner,
+        lambda: runner.warm_ladder(st, pb, [256], shard=max(SCALE_SHARDS)),
+        mono)
+    if rows_m != rows0[:255] or (256, max(SCALE_SHARDS)) not in runner.made:
+        raise AssertionError("run_batch of 255 points at shard=4: rows "
+                             "differ from shard=False or no padding to 256")
+    base = rec["unsharded"]["configs_per_s"]
+    log(f"[{card}] sharded lanes: rows identical to shard=False and equal "
+        f"to SWEEP_REF; lanes moved {moved}; configs/s " + ", ".join(
+            f"{k} {r['configs_per_s']:.2f} ({r['configs_per_s'] / base:.2f}x)"
+            for k, r in rec.items()))
+    return rec
+
+
+SCALE_CACHE_POINTS = 64     # (d)'s sweep: phase 6's first 64 points,
+SCALE_CACHE_TOP = MEMSYS_REF["mixed"]["horizon"] / 8   # horizons cut 8x
+SCALE_CACHE_K = 16          # the children's block: a quarter of the capture
+
+
+def _rows_sha256(rows):
+    import hashlib
+    return hashlib.sha256(json.dumps(rows, sort_keys=True, separators=(
+        ",", ":")).encode()).hexdigest()
+
+
+def _cache_sweep():
+    """(d)'s points and per-lane horizons: enough points to autotune,
+    horizons 8x shorter than phase 6's.  Still long enough that the
+    autotuner picks (and persists) its winner: while it probes rungs 32
+    and 16, the other lanes wait in the pool, so lanes remain when the
+    probes end."""
+    n = SCALE_CACHE_POINTS
+    return _dse_points(256)[:n], _dse_untils(256, SCALE_CACHE_TOP)[:n]
+
+
+def scale_cache_child(go):
+    """Phase 11 (d)'s child process: _cache_sweep at shard=2 (two
+    placements of cuda:0) with the cache dir of REPRO_CACHE_DIR, under the
+    bus, once the file ``go`` exists (the child imports, reaches the card
+    and builds before that): autotune probes, blocks made before and
+    after the first round, rungs used, wall s, the rows' sha256 and the
+    store's counts.  Its block is SCALE_CACHE_K epochs (rows do not depend
+    on it), so that a rung's capture costs a quarter of phase 6's."""
+    import torch
+    from repro_torch import dse
+    from repro_torch.dse import cache as dse_cache
+    from repro_torch.obs.bus import capture
+    from repro_torch.sims import memsys as tm
+    assert dse_cache.active(), "REPRO_CACHE_DIR not picked up"
+    sim, st = tm.build(n_cores=16, pattern="mixed", n_reqs=96,
+                       super_epoch=SCALE_CACHE_K)
+    pts, u = _cache_sweep()
+    torch.cuda.synchronize()
+    while not Path(go).exists():
+        time.sleep(0.05)
+    t = time.perf_counter()
+    with capture() as sink:
+        rows = dse.run_sweep(dse.memoize_build(lambda: (sim, st)),
+                             dse.SweepSpec.explicit(pts), until=u, shard=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    ev = sink.events
+    first = min(i for i, e in enumerate(ev) if e["kind"] == "round.end")
+    made = lambda es: sorted(e["b"] for e in es if e["kind"] == "compile")
+    return dict(
+        wall_s=wall, probes=sum(e["kind"] == "autotune.probe" for e in ev),
+        made_before=made(ev[:first]), made_after=made(ev[first:]),
+        used=sorted({e["rung"] for e in ev if e["kind"] == "round.end"}),
+        rows_sha256=_rows_sha256(rows), artifacts=dse_cache.stats())
+
+
+class _ScaleCache:
+    """Phase 11 (d): scale_cache_child in two processes sharing a fresh
+    REPRO_CACHE_DIR, both started when this is made, so that their
+    imports, CUDA start-up and builds run while the card does (a); each
+    sweeps only once released, the second after the first has ended.
+    ``finish`` releases them and holds them: the second runs no autotune
+    probe, makes every rung it uses before its first round (none after),
+    hits the store, and both give the rows of the same sweep in this
+    process (phase 6's simulation, unsharded)."""
+
+    def __init__(self, card):
+        import os
+        import shutil
+        self.card = card
+        self.dir = ROOT / "build" / "scale" / "cache"
+        shutil.rmtree(self.dir, ignore_errors=True)
+        self.dir.mkdir(parents=True)
+        env = dict(os.environ, REPRO_CACHE_DIR=str(self.dir / "store"),
+                   REPRO_TORCH_FORCE_DEVICES="2")
+        self.procs = []
+        for i in (1, 2):
+            code = (f"import json, sys; sys.path.insert(0, {str(ROOT)!r}); "
+                    "import chip_smoke; print(json.dumps("
+                    f"chip_smoke.scale_cache_child({str(self.go(i))!r})))")
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-c", code], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+
+    def go(self, i):
+        return self.dir / f"go{i}"
+
+    def _run(self, i):
+        self.go(i).touch()
+        proc = self.procs[i - 1]
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"cache child {i} failed: {err[-3000:]}")
+        return json.loads(out.strip().splitlines()[-1])
+
+    def finish(self):
+        from repro_torch import dse
+        first, second = self._run(1), self._run(2)
+        out = [first, second]
+        sim, st = _sweep_build()
+        pts, u = _cache_sweep()
+        ref = _rows_sha256(dse.run_sweep(dse.memoize_build(lambda: (sim, st)),
+                                         dse.SweepSpec.explicit(pts),
+                                         until=u))
+        problems = [what for what, bad in (
+            ("rows differ from this process's",
+             {first["rows_sha256"], second["rows_sha256"]} != {ref}),
+            ("the first process ran no probe", not first["probes"]),
+            ("the second process probed", second["probes"]),
+            ("the second made a block after its first round",
+             second["made_after"]),
+            ("a rung used was not made first",
+             not set(second["used"]) <= set(second["made_before"])),
+            ("the second process hit no artifact",
+             not second["artifacts"]["hits"])) if bad]
+        if problems:
+            raise AssertionError(f"cache: {problems}: {out}")
+        log(f"[{self.card}] cache: process 1 {first['wall_s']:.3f} s of "
+            f"sweep ({first['probes']} autotune probes, blocks made "
+            f"{first['made_before']} before and {first['made_after']} "
+            f"after its first round), process 2 {second['wall_s']:.3f} s "
+            f"({second['probes']} probes, {len(second['made_before'])} "
+            f"blocks {second['made_before']} all made before its first "
+            f"round); identical rows, equal to this process's")
+        return dict(first=first, second=second)
+
+    def close(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def check_scale(after_a=None):
+    """Phase 11: transparent parallel simulation and the campaign cache on
+    a mesh naming cuda:0 up to SCALE_PLACEMENTS times
+    (REPRO_TORCH_FORCE_DEVICES).  No kernel: the reference's collectives
+    (pmin, ppermute) are a min and a roll, its lanes a vmap.
+    ``after_a`` runs after (a) (the whole script finishes phase 10 (e)
+    there)."""
+    import os
+    card = _card()
+    t_phase = time.perf_counter()
+    rec = {"card": card}
+    out_dir = ROOT / "build" / "scale"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("*.pt"):
+        f.unlink()
+    parts = rec["parts_s"] = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return out
+
+    old = os.environ.get("REPRO_TORCH_FORCE_DEVICES")
+    os.environ["REPRO_TORCH_FORCE_DEVICES"] = str(SCALE_PLACEMENTS)
+    cpu = _CpuStates(out_dir, _pdes_cpu_states)
+    # (d)'s children start now and wait, so that their start-up overlaps
+    # (a), whose times are not read as performance
+    cache = _ScaleCache(card)
+    try:
+        states = {}
+        rec["pdes"] = part("pdes", check_pdes_parity, card, states)
+        if after_a is not None:
+            after_a()
+        rec["big"] = part("big", check_pdes_big, card)
+        rec["lanes"] = part("lanes", check_sharded_lanes, card)
+        rec["cache"] = part("cache", cache.finish)
+        part("pdes_cpu", check_pdes_cpu, card, states, cpu)
+    finally:
+        cache.close()
+        cpu.close()
+        if old is None:
+            del os.environ["REPRO_TORCH_FORCE_DEVICES"]
+        else:
+            os.environ["REPRO_TORCH_FORCE_DEVICES"] = old
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{card}] phase 11 (scale-out) took {rec['phase_s']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    return rec
+
+
 def main():
     try:
         import torch
@@ -3639,6 +4371,11 @@ def main():
         setup()
         print(json.dumps({"models": check_models(dev)}), flush=True)
         return 0
+    if sys.argv[1:] == ["--scale"]:
+        # phase 11 alone, after the card line
+        log(_card())
+        print(json.dumps({"scale": check_scale()}), flush=True)
+        return 0
     if sys.argv[1:] == ["--train"]:
         # phase 10 alone, after phase 1 (the builds, TF32 off)
         setup()
@@ -3656,12 +4393,19 @@ def main():
     launches, model = serve_hymba(dev)
     _profile(model)
     del model
-    engine = check_engine()
-    dse = check_dse()
+    engine = check_engine(trimmed=True)
+    dse = check_dse(trimmed=True)
     models = check_models(dev)
     sims = check_sims()
     search = check_search()
-    train = check_train(dev)
+    launch = []
+    train = check_train(dev, launch)
+
+    def finish_launch():
+        t = time.perf_counter()
+        train["e"] = launch[0].finish()
+        train["parts_s"]["e_wait"] = time.perf_counter() - t
+    scale = check_scale(finish_launch)
     fa_bf16 = launches["flash_attention"] + \
         models["launches"]["bfloat16"] + \
         train["d"]["launches"]["flash_attention"]
@@ -3695,6 +4439,7 @@ def main():
     print(json.dumps({"sims": sims}))
     print(json.dumps({"search": search}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"scale": scale}))
     print(json.dumps({"kernels": [{k: kr[k] for k in keys}
                                   for kr in kernels]}))
     print(json.dumps({"ok": True, "device": {

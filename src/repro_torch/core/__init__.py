@@ -1,7 +1,8 @@
-"""repro_torch.core — the Akita simulation engine in PyTorch, and the
-host-side task tracing, tracers, monitor and Daisen export (submodules
-``tracing``, ``tracers``, ``monitor``, ``daisen``).  Counterpart of
-``repro.core``; the PDES layer is not ported yet."""
+"""repro_torch.core — the Akita simulation engine in PyTorch, the sharded
+conservative PDES (submodule ``pdes``: ``ShardedSim``, ``lane_mesh``,
+``add_gateway``), and the host-side task tracing, tracers, monitor and
+Daisen export (submodules ``tracing``, ``tracers``, ``monitor``,
+``daisen``).  Counterpart of ``repro.core``."""
 from .component import ComponentKind, KindHandle, TickResult
 from .engine import (SimBuilder, SimParams, SimState, Simulation, Stats,
                      check_not_consumed)

@@ -82,7 +82,9 @@ approximately or fuse ``a*b+c`` into one FMA, and either would move the
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import gc
 from typing import Any
 
 import numpy as np
@@ -193,6 +195,32 @@ def _structure(tree):
         return tuple((f.name, _structure(getattr(tree, f.name)))
                      for f in dataclasses.fields(tree))
     return type(tree)
+
+
+@contextlib.contextmanager
+def _no_gc():
+    """No cyclic collection until the block's capture ends.  One inside a
+    capture may free an older simulation's graph (a simulation and its
+    blocks reference each other), or a pinned buffer or event of a round,
+    and either invalidates the capture.  Nor a full collection before it:
+    one before every capture is slow, which is why PyTorch's
+    ``torch.cuda.graph`` dropped its own."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
+def canonical_device(device) -> torch.device:
+    """``device`` with its index made explicit (``cuda`` is the current
+    card), so that two names of one device compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def _from_np(a, device) -> torch.Tensor:
@@ -396,7 +424,7 @@ class LaneBlock:
         torch.cuda.current_stream(sim.device).wait_stream(side)
         torch.cuda.synchronize(sim.device)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph), sim._device_ctx():
+        with _no_gc(), torch.cuda.graph(self.graph), sim._device_ctx():
             self.live, self.more = self._body(sim.super_epoch)
 
     def load(self, states_b: SimState, params_b: SimParams, until,
@@ -514,7 +542,8 @@ class Simulation:
                       if k.name in pad_shape else k for k in b.kinds]
         self.naive = naive
         self.donate = donate
-        self.cuda_graph = bool(cuda_graph) and self.device.type == "cuda"
+        self._graph_asked = bool(cuda_graph)
+        self.cuda_graph = self._graph_asked and self.device.type == "cuda"
         self.sample_period = float(sample_period)
         self.max_samples = int(max_samples) if sample_period > 0 else 0
 
@@ -571,7 +600,7 @@ class Simulation:
 
         dev = self.device
         on = lambda a: _from_np(a, dev)
-        self.c = dict(caps=on(caps), peer=on(peer))
+        self.c = dict(caps=on(caps), peer=on(peer), port_conn=on(port_conn))
         self._periods_np, self._caps_np = periods, caps
         self._latency_np = latency
         # --- hoisted delivery constants (gather/select formulation) ------
@@ -602,6 +631,7 @@ class Simulation:
         self._dp = self.default_params()
         self._graphs: dict[Any, _Graph] = {}
         self._lane_blocks: dict[Any, LaneBlock] = {}
+        self._twins: dict[torch.device, Simulation] = {}
         # the captured block of the last run on the card, for profiling:
         # ``last_graph.graph.replay()`` advances its static state one block
         self.last_graph: _Graph | None = None
@@ -690,7 +720,32 @@ class Simulation:
         self._build_kind_consts()
         self._graphs.clear()
         self._lane_blocks.clear()
+        self._twins.clear()
         self.last_graph = None
+
+    def on_device(self, device) -> "Simulation":
+        """This simulation on ``device``: ``self`` on its own device,
+        elsewhere a cached twin holding a copy of every hoisted constant
+        there and no block or graph of its own yet (a placement of the
+        sharded lanes and PDES shards, ``core.pdes``).  Twins are dropped
+        by ``set_default_peers``."""
+        dev = canonical_device(resolve_device(device))
+        if dev == canonical_device(self.device):
+            return self
+        tw = self._twins.get(dev)
+        if tw is None:
+            tw = copy.copy(self)
+            tw.__dict__.update({k: v.to(dev) for k, v in vars(self).items()
+                                if isinstance(v, torch.Tensor)})
+            tw.device = dev
+            tw.cuda_graph = self._graph_asked and dev.type == "cuda"
+            tw.c = {k: v.to(dev) for k, v in self.c.items()}
+            tw._build_kind_consts()
+            tw._dp = tw.default_params()
+            tw._graphs, tw._lane_blocks, tw._twins = {}, {}, {}
+            tw.last_graph = None
+            self._twins[dev] = tw
+        return tw
 
     # ------------------------------------------------------------------
     def port_id(self, kind_name: str, inst: int, port: int = 0) -> int:
@@ -1167,7 +1222,7 @@ class Simulation:
         torch.cuda.current_stream(self.device).wait_stream(side)
         torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph), self._device_ctx():
+        with _no_gc(), torch.cuda.graph(graph), self._device_ctx():
             out = self._block(static["state"], static["params"],
                               static["until"], static["max_epochs"],
                               self.super_epoch)

@@ -9,7 +9,13 @@ Counterpart of ``repro.dse``:
   * :mod:`~repro_torch.dse.runner`   — ``BatchRunner`` / ``run_sweep``:
     lane-batched blocks of the engine (a captured CUDA graph per ladder
     rung on the card) with per-lane horizons, rounds with lane
-    compaction and the depth-2 pipeline;
+    compaction and the depth-2 pipeline, optionally sharded over a mesh
+    of placements (``shard=``) with globally-rebalanced compaction;
+  * :mod:`~repro_torch.dse.cache`    — the campaign cache: a
+    cross-process artifact store for the autotuned rung, the rung sets
+    sweeps used and family shape unions, so the second process of a
+    campaign repeats the first one's choices without probing (the
+    reference's persisted executables have no counterpart);
   * :mod:`~repro_torch.dse.schedule` — the chunk ladder, epoch-quantum
     policy and the one-shot chunk-size autotuner behind ``run_rounds``;
   * :mod:`~repro_torch.dse.mux`      — ``LaneMux``: several sweep jobs'
@@ -20,10 +26,9 @@ Counterpart of ``repro.dse``:
     (``SuccessiveHalving``, ``BatchBO``, ``RandomSearch``) that pick
     points and horizons between rounds under a simulated-cycle budget,
     with resumable ``SearchState`` and rung checkpoints.
-
-Not ported yet: ``cache``, and lanes sharded over several cards
-(``shard=`` above 1; ROADMAP queue 1 item 10).
 """
+from . import cache
+from .cache import configure as configure_cache
 from .family import TopologyFamily
 from .mux import LaneMux, MuxJob
 from .report import (dominates, format_table, pareto_front, score_vector,
@@ -41,6 +46,7 @@ from .sweep import (SweepSpec, apply_point, axis_error, build_param_batch,
                     split_shape, stack_params, valid_axes)
 
 __all__ = [
+    "cache", "configure_cache",
     "SweepSpec", "apply_point", "axis_error", "valid_axes",
     "build_param_batch", "stack_params", "split_shape", "TopologyFamily",
     "BatchRunner", "run_sweep", "stack_states", "stack_state_list", "lane",

@@ -31,11 +31,28 @@ Execution strategies, as in the reference:
   no lane is live.
 * **Chunking** (``run_chunked``): fixed-size slabs, the final one padded
   with *zero-horizon* lanes that freeze on entry.
-* **Sharding** across cards is not ported: ``shard=`` accepts ``False``,
-  ``True`` or ``1`` (one card, the reference's single-device path) and
-  raises above that.  The reference's persistent campaign cache
-  (``repro.dse.cache``) has no counterpart either; a runner keeps its
-  autotuned rung in process.
+* **Sharding** — ``shard=True`` (or ``shard=<n placements>``) lays the
+  batch out as ``[shards, chunk]`` lanes over a 1-D mesh of placements
+  (``core.pdes.lane_mesh``: the cards, or N placements of one device
+  under ``REPRO_TORCH_FORCE_DEVICES=N``).  Each device runs its slots'
+  lanes as one lane-batched block (one CUDA graph a rung) on its own
+  twin of the simulation (``Simulation.on_device``); consecutive slots
+  of one device share that block.  Lanes are independent, so the rows
+  are bit-identical to the single-device path.  Batches that don't
+  divide the placement count are padded with zero-horizon lanes that
+  freeze on entry.  Under ``run_rounds`` the harvest/compact/refill step
+  is *global*: survivors from all shards pool on the host and re-pack
+  across shards each round (``shard.rebalance`` telemetry counts the
+  lanes that changed slot), and ladder rungs align up to multiples of
+  the placement count.
+
+Cold-start cost is covered by ``repro_torch.dse.cache``: ``run_sweep``
+opens the campaign cache dir on entry when one is configured, and the
+runner persists its warm-start artifacts (autotuned rung, the rungs a
+sweep can choose, family shape unions) so a fresh process repeats a previous
+process's choices and captures every rung before its first timed round.
+The reference's persisted executables have no counterpart (a CUDA graph
+cannot be serialised).
 * **Donation**: with ``donate=True`` a batch handed to ``run_batch`` is
   marked consumed, as ``Simulation.run`` marks its input; ``stack_states``
   makes fresh per-lane copies, so the template stays reusable.
@@ -57,8 +74,10 @@ import torch
 from repro_torch.core import SimParams, SimState, check_not_consumed
 from repro_torch.core.engine import (host_tensor, tree_leaves, tree_map,
                                      tree_unflatten)
+from repro_torch.core.pdes import device_count, device_groups, lane_mesh
 from repro_torch.obs.bus import BUS
 
+from . import cache as dse_cache
 from .family import TopologyFamily
 from .schedule import ChunkSchedule, ChunkAutotuner, auto_schedule
 from .sweep import (STATIC_PREFIX, SweepSpec, apply_point,
@@ -220,15 +239,23 @@ def extract_rows(sim, out_b: SimState, n: int,
     return [extract(sim, lane(host, j)) for j in range(n)]
 
 
-def _shard_devices(shard) -> int:
-    """Normalize a ``shard`` argument: ``False``, ``0``, ``True`` and ``1``
-    all mean one card, the plain path.  Spreading lanes over several cards
-    is not ported and raises."""
-    if shard is True or not shard or int(shard) == 1:
+def _shard_devices(shard, device=None) -> int:
+    """Normalize a ``shard`` argument (bool or placement count) to the
+    number of mesh placements to span: ``False``/``0`` → 1 (the plain
+    path), ``True`` → every placement of ``device``'s kind
+    (``core.pdes.device_count``: the visible cards, or
+    ``REPRO_TORCH_FORCE_DEVICES``), an int → that many (clamped to what
+    there is, never below 1)."""
+    if shard is True:
+        return device_count(device)
+    if not shard:
         return 1
-    raise NotImplementedError(
-        f"shard={shard!r}: lanes sharded over several cards are not ported "
-        "yet (ROADMAP queue 1 item 10); pass shard=False for one card")
+    return max(1, min(int(shard), device_count(device)))
+
+
+def _align_up(n: int, d: int) -> int:
+    """``n`` rounded up to a multiple of ``d``."""
+    return -(-int(n) // int(d)) * int(d)
 
 
 def _horizons(until, max_epochs, b: int) -> tuple[np.ndarray, np.ndarray]:
@@ -246,50 +273,52 @@ def _horizons(until, max_epochs, b: int) -> tuple[np.ndarray, np.ndarray]:
 class BatchRunner:
     """Batched runs over one :class:`Simulation`'s design space.
 
-    Lane-batched blocks are cached on the simulation per (lanes,
-    structure); the horizon and epoch budget are per-lane buffers, so
-    neither ``until`` nor ``max_epochs`` keys the cache and chunk-ladder
-    rounds never capture again after warmup.  ``trace_count`` counts the
-    blocks this runner caused to be made (captures on the card, first uses
-    on the CPU).
+    Lane-batched blocks are cached on the simulation (and on its twin of
+    each device a mesh spans) per (lanes, structure); the horizon and
+    epoch budget are per-lane buffers, so neither ``until`` nor
+    ``max_epochs`` keys the cache and chunk-ladder rounds never capture
+    again after warmup.  ``trace_count`` counts the blocks this runner
+    caused to be made (captures on the card, first uses on the CPU);
+    ``made`` holds the ``(lanes, placements)`` of every batch it ran, the
+    counterpart of the reference's executable keys.
     """
 
     def __init__(self, sim):
         self.sim = sim
         self.trace_count = 0          # blocks made (captures on the card)
-        # devices -> autotuned rung (one card: key 1), as in the reference
+        self.made: set[tuple[int, int]] = set()
+        # devices -> autotuned rung: the winning chunk depends on the
+        # shard topology (per-placement width is C/d), so a runner reused
+        # under a different mesh must not inherit a stale rung
         self._tuned_top: dict[int, int] = {}
         self.last_rounds: dict | None = None    # diagnostics of last run
         self.last_shard = 1           # devices the last run_batch spanned
 
     # ------------------------------------------------------------------
-    def _block(self, states_b: SimState, params_b: SimParams):
-        """The lane-batched block for this batch, made (and on the card
+    def _block(self, sim, states_b: SimState, params_b: SimParams, d: int):
+        """The lane-batched block of ``sim`` (the runner's simulation or
+        its twin on another device) for this batch, made (and on the card
         captured) on first use of its (lanes, structure)."""
         t0 = time.perf_counter()
-        blk, made = self.sim.lane_block(states_b, params_b)
+        blk, made = sim.lane_block(states_b, params_b)
         if made:
             self.trace_count += 1
             if BUS.active:
-                BUS.emit("compile", what="run", b=blk.b, shard=1, n=1,
+                BUS.emit("compile", what="run", b=blk.b, shard=d, n=1,
                          dur=time.perf_counter() - t0)
                 BUS.count("dse.compiles", 1)
         return blk
 
-    def _launch(self, states_b: SimState, params_b: SimParams, u, m,
-                budget=None, blocks: int | None = None):
+    def _launch(self, sim, states_b: SimState, params_b: SimParams, u, m,
+                budget, blocks: int | None, d: int):
         """Load a batch into its block and enqueue ``blocks`` steps with no
         host read between them, or (``None``) step until no lane is live
         with one host read of ``more`` per step, as ``Simulation.run``
         reads ``live``.  On the CPU, where a read costs nothing, stepping
         stops as soon as every lane has stopped.  Returns the block, whose
         buffers hold the result until the next load."""
-        if self.sim.donate:
-            check_not_consumed(states_b)
-        blk = self._block(states_b, params_b)
+        blk = self._block(sim, states_b, params_b, d)
         blk.load(states_b, params_b, u, m, budget)
-        if self.sim.donate:
-            object.__setattr__(states_b, "_consumed", True)
         eager = blk.graph is None
         n = 0
         while blocks is None or n < blocks:
@@ -298,6 +327,43 @@ class BatchRunner:
             if (blocks is None or eager) and not bool(blk.more):
                 break
         return blk
+
+    def _dispatch(self, states_b: SimState, params_b: SimParams, u, m,
+                  budget=None, blocks: int | None = None, d: int = 1,
+                  liveness: bool = True):
+        """Run a batch laid out as ``[d, b/d]`` over the lane mesh:
+        each device's slots as one block (``_launch``) on the simulation's
+        twin there.  Returns the result, stacked on the simulation's
+        device in lane order, and the pending liveness copies
+        (``_liveness_start``) of every block, or ``None``.  The batch is
+        consumed when the simulation donates."""
+        if self.sim.donate:
+            check_not_consumed(states_b)
+        b = len(u)
+        self.made.add((b, d))
+        self.last_shard = d
+        budget = m if budget is None else budget
+        if d == 1:                    # the plain path: one block, as is
+            blk = self._launch(self.sim, states_b, params_b, u, m, budget,
+                               blocks, 1)
+            out = self.sim.copy_state(blk.state)
+            if self.sim.donate:
+                object.__setattr__(states_b, "_consumed", True)
+            return out, ([self._liveness_start(blk)] if liveness else None)
+        outs, pend = [], []
+        for dev, lo, hi in device_groups(
+                lane_mesh(d, device=self.sim.device), b):
+            sim = self.sim.on_device(dev)
+            part = lambda t: tree_map(lambda x: x[lo:hi].to(dev), t)
+            blk = self._launch(sim, part(states_b), part(params_b),
+                               u[lo:hi], m[lo:hi], budget[lo:hi], blocks, d)
+            outs.append(tree_map(lambda x: x.to(self.sim.device),
+                                 sim.copy_state(blk.state)))
+            if liveness:
+                pend.append(self._liveness_start(blk))
+        if self.sim.donate:
+            object.__setattr__(states_b, "_consumed", True)
+        return _concat(outs), (pend if liveness else None)
 
     def _liveness_start(self, blk):
         """Start the copy of the block's per-lane ``(live, epochs)`` to the
@@ -314,20 +380,25 @@ class BatchRunner:
         live_h.copy_(live, non_blocking=True)
         ep_h.copy_(ep, non_blocking=True)
         event = torch.cuda.Event()
-        event.record()
+        event.record(torch.cuda.current_stream(live.device))
         return (live_h, ep_h, event, blk.b)
 
     def _liveness_read(self, pending):
-        """Blocking half of the liveness pull: wait for the event of a
-        :meth:`_liveness_start` call.  Returns ``((live, epochs), wait_s)``
-        — ``wait_s`` is the time spent blocked here, which under
+        """Blocking half of the liveness pull: wait for the events of the
+        :meth:`_liveness_start` calls of a batch's blocks (one a device)
+        and join their vectors in lane order.  Returns ``((live, epochs),
+        wait_s)`` — ``wait_s`` is the time spent blocked here, which under
         pipelining is (near) zero once the card has finished the round
         while the host did round *k+1*'s work."""
-        live, ep, event, b = pending
         t0 = time.perf_counter()
-        if event is not None:
-            event.synchronize()
-        out = (live.numpy(), ep.numpy())
+        for _, _, event, _ in pending:
+            if event is not None:
+                event.synchronize()
+        out = ((pending[0][0].numpy(), pending[0][1].numpy())
+               if len(pending) == 1 else
+               tuple(np.concatenate([p[i].numpy() for p in pending])
+                     for i in (0, 1)))
+        b = sum(p[3] for p in pending)
         dt = time.perf_counter() - t0
         if BUS.active:
             BUS.emit("transfer", what="liveness", b=b, dur=dt)
@@ -346,17 +417,33 @@ class BatchRunner:
         the block still *steps* until the slowest lane is done; use
         :meth:`run_rounds` to reclaim that waste).
 
-        ``shard``: one card only (see :func:`_shard_devices`).
+        ``shard`` spans the lane mesh: ``True`` means every placement,
+        an int pins the count.  A batch that doesn't divide the placement
+        count is padded to the next multiple by repeating the last lane at
+        **zero horizon and zero budget** (it freezes on entry, exactly
+        like chunk padding) and the padding rows are sliced off the
+        result — every placement runs ``ceil(B/d)`` lanes.
 
         ``states_b`` is consumed when the simulation was built with
         ``donate=True`` (see ``stack_states`` /
         ``Simulation.copy_state``); reusing a consumed batch raises.
         """
+        if self.sim.donate:
+            check_not_consumed(states_b)
         b = int(params_b.conn_latency.shape[0])
-        self.last_shard = _shard_devices(shard)
+        d = _shard_devices(shard, self.sim.device)
+        self.last_shard = d
         u, m = _horizons(until, max_epochs, b)
-        blk = self._launch(states_b, params_b, u, m)
-        return self.sim.copy_state(blk.state)
+        pad = _align_up(b, d) - b
+        if pad:
+            grow = lambda x: torch.cat([x] + [x[-1:]] * pad)
+            states_b = tree_map(grow, states_b)
+            params_b = tree_map(grow, params_b)
+            u = np.concatenate([u, np.zeros(pad, np.float32)])
+            m = np.concatenate([m, np.zeros(pad, np.int32)])
+        out, _ = self._dispatch(states_b, params_b, u, m, d=d,
+                                liveness=False)
+        return tree_map(lambda x: x[:b], out) if pad else out
 
     # ------------------------------------------------------------------
     def run_chunked(self, template: SimState | Sequence[SimState],
@@ -414,15 +501,17 @@ class BatchRunner:
         without advancing any lane: a zero-horizon, zero-budget batch
         steps once and executes no epoch.  Benchmarks use this so a
         drain-phase rung can never capture inside a timed region."""
-        _shard_devices(shard)
+        d = _shard_devices(shard, self.sim.device)
         t = template[0] if isinstance(template, (list, tuple)) else template
         if self.sim.donate:
             check_not_consumed(t)
         for b in sizes:
+            b = _align_up(b, d)
             pb = tree_map(lambda x: torch.stack([x[0]] * b), params_b)
-            out = self._launch(stack_states(t, b), pb,
-                               np.zeros(b, np.float32), np.zeros(b, np.int32))
-            self._liveness_read(self._liveness_start(out))
+            _, pend = self._dispatch(stack_states(t, b), pb,
+                                     np.zeros(b, np.float32),
+                                     np.zeros(b, np.int32), d=d)
+            self._liveness_read(pend)
 
     # ------------------------------------------------------------------
     def run_rounds(self, template: SimState | Sequence[SimState],
@@ -454,10 +543,23 @@ class BatchRunner:
         loop, bit-identically; an int sets the depth.  Autotune probe
         rounds and the endgame run unpipelined.
 
+        Under ``shard`` the round batch spans the lane mesh as
+        ``[d, C/d]`` and the compact/refill step is **global**: the
+        survivor pool is one host-side queue across all shards, so each
+        round re-packs live lanes over the whole mesh (the per-round
+        ``shard.rebalance`` event counts lanes that changed slot).  Ladder
+        rungs align up to multiples of ``d``.
+
         ``schedule`` defaults to
         :func:`~repro_torch.dse.schedule.auto_schedule` — with a one-shot
         chunk autotune for large B whose winning rung is kept on this
-        runner.  Returns the stacked final states in point order.
+        runner (and, when a campaign cache dir is configured, persisted
+        via ``repro_torch.dse.cache`` keyed on the sim signature and the
+        shard topology, so a *fresh process* skips the probe too).  With a
+        cache dir, once a previous process ran this (sim, B, topology),
+        every rung it could choose is captured before the first timed
+        round.  Returns the stacked final states in point
+        order.
 
         ``init_epochs`` (scalar or per-lane) is the epoch count already
         recorded in each lane's *initial* state — warm resumes pass the
@@ -472,14 +574,35 @@ class BatchRunner:
             for t in (template if per_lane else [template]):  # mid-round
                 check_not_consumed(t)
         u, budget = _horizons(until, max_epochs, B)
-        d = _shard_devices(shard)
+        d = _shard_devices(shard, self.sim.device)
         auto = schedule is None
         schedule = auto_schedule(B) if auto else \
             dataclasses.replace(schedule)              # never mutate input
+        if d > 1:
+            # align every rung up to a multiple of d — each round's batch
+            # lays out as [d, C/d], and an unaligned rung would pad every
+            # round; tuner/ladder bookkeeping all works in aligned units
+            schedule = dataclasses.replace(
+                schedule, ladder=tuple(sorted(
+                    {_align_up(r, d) for r in schedule.ladder},
+                    reverse=True)))
         if auto:
             tuned = self._tuned_top.get(d)
+            if tuned is None:
+                tuned = dse_cache.get_tuned_top(self.sim, d)
+                if tuned is not None:   # a previous process's winner
+                    self._tuned_top[d] = tuned
             if tuned is not None:
                 schedule = schedule.narrowed(tuned)
+        # with a campaign cache, capture before the first timed round the
+        # rungs a previous process could choose for this (sim, B,
+        # topology): a CUDA graph, unlike an XLA executable, cannot come
+        # from disk, so a cold rung would capture mid-round
+        if dse_cache.active():
+            known = dse_cache.get_rung_set(self.sim, B, d) or []
+            cold = [r for r in known if (r, d) not in self.made]
+            if cold:
+                self.warm_ladder(template, params_b, cold, shard=d)
 
         depth = (2 if pipeline is None or pipeline is True else
                  1 if pipeline is False else max(1, int(pipeline)))
@@ -497,6 +620,7 @@ class BatchRunner:
         n_rounds = 0
         n_dispatched = 0
         host_accum = wait_accum = 0.0
+        shard_of: dict[int, int] = {}   # config -> mesh slot last round
         if BUS.active:
             BUS.emit("rounds.start", B=B, per_lane=per_lane,
                      ladder=list(schedule.ladder),
@@ -539,6 +663,7 @@ class BatchRunner:
                                         in tuner.rates.items()})
                     schedule = schedule.narrowed(top)
                     self._tuned_top[d] = top
+                    dse_cache.put_tuned_top(self.sim, d, top)
                     tuner = None
             C = rung if rung is not None else schedule.size_for(remaining)
             # Endgame: once everything left fits the smallest rung there
@@ -591,14 +716,29 @@ class BatchRunner:
             m_vec = np.where(live_row, cap, 0).astype(np.int32)
             b_vec = np.where(live_row, budget[ridx], 0).astype(np.int32)
 
+            if BUS.active and d > 1:
+                # global re-pack diagnostics: which mesh slot does each
+                # live config land on this round, vs where it ran last
+                # round — moved lanes are the cross-shard rebalancing
+                per_dev = C // d
+                moved = n_live = 0
+                for j, i in enumerate(ids):
+                    if i < 0:
+                        continue
+                    n_live += 1
+                    slot = j // per_dev
+                    if i in shard_of and shard_of[i] != slot:
+                        moved += 1
+                    shard_of[i] = slot
+                BUS.emit("shard.rebalance", round=n_dispatched, shards=d,
+                         moved=moved, lanes=n_live)
+                BUS.count("dse.shard.lanes_moved", moved)
             t0 = time.perf_counter()
             # a quantum round: every lane stops at its cap within
             # ceil(quantum / K) blocks, so they go back to back unread
-            blk = self._launch(sb, pb, u_vec, m_vec, b_vec,
-                               None if endgame
-                               else math.ceil(schedule.quantum / K))
-            out = self.sim.copy_state(blk.state)
-            pend = self._liveness_start(blk)
+            out, pend = self._dispatch(
+                sb, pb, u_vec, m_vec, b_vec,
+                None if endgame else math.ceil(schedule.quantum / K), d)
             n_dispatched += 1
             return {"ids": ids, "out": out, "pend": pend, "C": C,
                     "rung": rung, "endgame": endgame,
@@ -704,6 +844,13 @@ class BatchRunner:
                             "host_s": host_accum, "wait_s": wait_accum,
                             "overlap_frac": occ,
                             "trace_count": self.trace_count}
+        # remember the rungs this (sim, B, topology) can choose once tuned
+        # — every size_for(remaining), unlike the reference's rungs used:
+        # which of them a run uses depends on round timings (the quantum
+        # grows with them) — so the next process captures them all before
+        # its first timed round
+        dse_cache.put_rung_set(self.sim, B, d, {
+            schedule.size_for(n) for n in range(1, B + 1)})
         if BUS.active:
             BUS.emit("rounds.end", B=B, rounds=n_rounds,
                      chunk=schedule.top, quantum=schedule.quantum,
@@ -751,6 +898,10 @@ def memoize_build(build_fn: Callable) -> Callable:
       whenever its ``shape_max`` covers the requested shape.  A request
       that exceeds the cache is rebuilt at the elementwise maximum of old
       and new, so repeated growth converges to one family per group.
+      When a campaign cache dir is configured (``repro_torch.dse.cache``)
+      the union also persists *across processes*, keyed on the build
+      function + static kwargs: a fresh process builds the family at the
+      previous process's final maximum in one shot.
 
     The wrapper forwards ``build_fn``'s signature (``functools.wraps``),
     so ``run_sweep``'s eager ``static.*`` kwarg validation still sees
@@ -780,8 +931,18 @@ def memoize_build(build_fn: Callable) -> Callable:
         if fam is not None:
             for a, v in fam.shape_max.items():
                 grown[a] = max(int(grown.get(a, 0)), int(v))
+        bkey = None
+        if dse_cache.active():        # cross-process union (same axes only
+            bkey = dse_cache.family_build_key(build_fn, args, kw)
+            persisted = dse_cache.get_family_shape(bkey)
+            if persisted:             # — a foreign axis would leak into
+                for a, v in persisted.items():   # the build signature)
+                    if a in grown:
+                        grown[a] = max(int(grown[a]), int(v))
         fam = build_fn(*args, **kw, shape=grown)
         cache[key] = fam
+        if bkey is not None:
+            dse_cache.put_family_shape(bkey, fam.shape_max)
         return fam
 
     wrapped._dse_memoized = True
@@ -845,8 +1006,10 @@ def run_sweep(build_fn: Callable, spec: SweepSpec, until,
     (:meth:`BatchRunner.run_rounds`).  ``chunk`` pins the ladder's top
     rung (otherwise large groups autotune it); ``schedule`` overrides the
     whole policy.  ``until`` may be a scalar or a per-point sequence.
-    ``shard``: one card only.  ``pipeline`` forwards to
-    :meth:`BatchRunner.run_rounds`.
+    ``shard=True`` (or a placement count) spans each round over the lane
+    mesh with globally-rebalanced compaction — rows stay bit-identical to
+    the single-device path (:meth:`BatchRunner.run_rounds`).
+    ``pipeline`` forwards to :meth:`BatchRunner.run_rounds`.
 
     **Topology families** (``shape.*`` axes, DSE.md): the runner groups
     by ``static.*`` only, computes each group's family maximum per shape
@@ -872,6 +1035,7 @@ def run_sweep(build_fn: Callable, spec: SweepSpec, until,
         raise ValueError(
             f"resume= must give one handle (or None) per point: "
             f"{len(resume)} != {len(spec)}")
+    dse_cache.ensure_enabled()       # open the campaign cache dir, if any
     rows: list[dict | None] = [None] * len(spec)
     lane_states = LaneStates() if return_states else None
     until_arr = np.broadcast_to(np.asarray(until, np.float32), (len(spec),))

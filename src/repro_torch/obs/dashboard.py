@@ -18,9 +18,9 @@ ephemeral-port fallback, clean shutdown):
 Everything is read-only and snapshot-based: HTTP threads never touch
 simulation state, so a slow client can never stall a round.  A copy of
 ``repro.obs.dashboard``.  Its search and mux panels read the events of
-``repro_torch.dse.search`` and ``repro_torch.dse.mux``; its cache and
-shard panels wait for the campaign cache and sharded lanes, which the
-port does not have yet (ROADMAP queue 1 item 10).
+``repro_torch.dse.search`` and ``repro_torch.dse.mux``, its cache and
+shard panels those of ``repro_torch.dse.cache`` and the sharded lanes
+(``shard=``).
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """GPU-like multi-core memory-system simulator — the Smart-Ticking
 evaluation vehicle (paper §4 runs MGPUSim; we build the equivalent
 cores + private L1 + shared-DRAM-over-crossbar system on the engine).
-Counterpart of ``repro.sims.memsys``; the sharded-PDES variant is not
-ported yet.
+Counterpart of ``repro.sims.memsys``, with its sharded-PDES variant
+(``build_sharded_memsys`` on ``repro_torch.core.pdes``).
 
 Workload patterns mirror the paper's benchmark behaviours:
   * ``compute``  — long think times, cores mostly busy (FIR/AES-like);
@@ -356,3 +356,77 @@ def build(n_cores=8, pattern="mixed", n_reqs=64, naive=False, seed=0,
     if private_dram:
         return sim, st          # 1:1 links use default peers
     return _patch_dsts(sim, st, n_cores)
+
+
+# ---------------------------------------------------------------------------
+# sharded-PDES variant (engine-as-workload)
+# ---------------------------------------------------------------------------
+def remote_writer_tick(state, ports, t):
+    want = state["remaining"] > 0
+    ports, sent = ports.send(0, msg_new(WRITE_REQ, p0=state["addr"]),
+                             when=want)
+    state = dict(state)
+    state["remaining"] = state["remaining"] - sent.to(_i32)
+    state["addr"] = state["addr"] + 64
+    return state, ports, TickResult.make(sent)
+
+
+def build_sharded_memsys(mesh=None, n_shards: int = 1,
+                         tiles_per_shard: int = 4, n_reqs: int = 32,
+                         lookahead: float = 8.0):
+    """Each shard: a memsys tile + a writer streaming to the right-neighbor
+    shard's DRAM through the PDES gateway (ring topology, 1 peer).
+    ``mesh`` (``core.pdes.lane_mesh``; default one card) places the
+    shards."""
+    from repro_torch.core.pdes import ShardedSim, add_gateway
+
+    # NB: the gateway ingress cannot share the DRAM's crossbar port (Akita:
+    # one connection per port), so the DRAM gets a second port for remote
+    # traffic.
+    def build_fn():
+        n_cores = tiles_per_shard
+        b = SimBuilder()
+        rng = np.random.default_rng(0)
+        remaining, think, seq = _workload("mixed", n_cores, n_reqs, rng)
+        cores = b.add_kind(ComponentKind(
+            "core", core_tick, n_cores, 1,
+            {"remaining": _t(remaining),
+             "outstanding": torch.zeros(n_cores, dtype=_i32),
+             "addr": _t(rng.integers(0, 1 << 20, n_cores)
+                        .astype(np.int32)),
+             "seq": _t(seq), "think": _t(think),
+             "tag": torch.arange(n_cores, dtype=_i32),
+             "next_issue": torch.zeros(n_cores, dtype=torch.float32)},
+            cap=2, params=CORE_PARAMS))
+        l1 = b.add_kind(ComponentKind(
+            "l1", l1_tick, n_cores, 2,
+            {"tags": torch.full((n_cores, 64), -1, dtype=_i32),
+             "mshr_busy": torch.zeros(n_cores, dtype=_i32),
+             "hits": torch.zeros(n_cores, dtype=_i32),
+             "misses": torch.zeros(n_cores, dtype=_i32)}, cap=2,
+            params=L1_PARAMS))
+        dram = b.add_kind(ComponentKind(
+            "dram", dram_tick, 1, 2, {"served": torch.zeros(1, dtype=_i32)},
+            cap=8))
+        writer = b.add_kind(ComponentKind(
+            "writer", remote_writer_tick, 1, 1,
+            {"remaining": torch.full((1,), n_reqs, dtype=_i32),
+             "addr": torch.zeros(1, dtype=_i32)}, cap=2))
+        gw = add_gateway(b, n_peers=1, chan_per_peer=1, cap=8)
+        for i in range(n_cores):
+            b.connect([cores.port(i, 0), l1.port(i, 0)], latency=1.0)
+        b.connect([l1.port(i, 1) for i in range(n_cores)]
+                  + [dram.port(0, 0)], latency=16.0)
+        b.connect([writer.port(0, 0), gw.port(0, 0)], latency=1.0)
+        b.connect([gw.port(0, 1), dram.port(0, 1)], latency=1.0)
+        return b, gw
+
+    ss = ShardedSim(build_fn, n_shards=n_shards, n_peers=1,
+                    chan_per_peer=1, mesh=mesh, lookahead=lookahead,
+                    mailbox=8)
+    # the l1 crossbar needs explicit DRAM addressing (multi-member conn)
+    dram_pid = ss.sim.port_id("dram", 0, 0)
+    ss.sim.set_default_peers(
+        {ss.sim.port_id("l1", i, 1): dram_pid
+         for i in range(tiles_per_shard)})
+    return ss
