@@ -143,6 +143,16 @@ Phases (each raises on failure, and the run then exits non-zero):
      REPRO_CACHE_DIR (started beside (a), released one after the other):
      the second probes nothing, makes every rung before its first round,
      same rows.
+  12. dry run: ``repro_torch.launch.dryrun`` on the card's machine (no
+     kernel and no allocation: every step is traced on ``meta``).  (a)
+     hymba-1.5b's training cell at phase 10 (d)'s B=2 x S=2048, f32
+     moments, block remat, on a 1x1 mesh: planned argument bytes equal to
+     the bytes phase 10 (d) hands its step, exactly; the planned temp
+     beside the measured peak and the planned bound beside the measured
+     step; (b) ``run_cell`` for deepseek-v2-236b x decode_32k on 16x16,
+     argument bytes equal to the JAX package's (DRYRUN_DSV2_ARGS); (c)
+     ``run_sim_cell`` on 8 placements of cuda:0 against DRYRUN_SIM_REF
+     (the JAX package's compiled sim cell on 8 host devices).
 To fit phase 11, the whole script runs the naive engine of phase 5 (a)
 on idle_half and mixed only (the other three patterns give mixed's
 results), phase 6 (a) as its pipelined sweep alone (phase 11 (c) holds
@@ -151,13 +161,13 @@ the same rows through unpipelined sweeps and a padded run_batch), phase
 package's row at that size), and phase 10 (e)'s subprocess beside phase 11 (a);
 ``--engine`` and ``--dse`` run them whole.
 Then the engine's, the DSE path's, the models', the sims', the search's,
-the training's and the scale-out's JSON records, the kernels' JSON
-record (the line before the last; the launches add phase 7's model runs
-and phase 10's training to phase 3's), and ``{"ok": true, "device":
-{...}}`` as the last line.  ``python3 chip_smoke.py --engine`` runs phase
+the training's, the scale-out's and the dry run's JSON records, the
+kernels' JSON record (the line before the last; the launches add phase
+7's model runs and phase 10's training to phase 3's), and ``{"ok": true,
+"device": {...}}`` as the last line.  ``python3 chip_smoke.py --engine`` runs phase
 5 alone, ``--dse`` phase 6, ``--models`` phases 1 and 7, ``--sims`` phase
 8, ``--search`` phase 9, ``--train`` phases 1 and 10, ``--scale`` phase
-11.
+11, ``--dryrun`` phase 12.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -3595,6 +3605,8 @@ def train_hymba(dev, gen):
     step = make_train_step(cfg, TrainHParams(lr=m["lr"]))
     tb = {k: torch.as_tensor(v, device=dev) for k, v in data(0).items()}
     state = {"o": opt}
+    # what the step is handed: phase 12 (a) plans the same bytes
+    rec["step_arg_bytes"] = _step_arg_bytes(model, opt, tb)
 
     def one():
         _, _, _, state["o"] = step(model, state["o"], tb)
@@ -3647,6 +3659,15 @@ def train_hymba(dev, gen):
     _free(dev)
     rec["layer"] = _kernel_vs_backward(dev, gen, cfg, m["batch"], m["seq"])
     return rec
+
+
+def _step_arg_bytes(model, opt, batch):
+    """Bytes of a train step's arguments: parameters, optimizer state (its
+    int32 count too) and batch."""
+    from repro_torch.core.engine import ref_leaves
+    from repro_torch.models.transformer import param_tree
+    return sum(t.numel() * t.element_size() for tree in
+               (param_tree(model), opt, batch) for t in ref_leaves(tree))
 
 
 class LaunchTrain:
@@ -4329,6 +4350,159 @@ def check_scale(after_a=None):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 12
+# ---------------------------------------------------------------------------
+# (b) the JAX package's per-device argument bytes of deepseek-v2-236b x
+# decode_32k on the 16x16 mesh: the shard shapes of its abstract arguments
+# under its own PartitionSpecs on a jax AbstractMesh
+# (tests/test_torch_sharding.py, ref_argument_bytes)
+DRYRUN_DSV2_ARGS = 5_418_813_504
+# (c) the JAX package's sim cell on 8 forced host devices: the compiled
+# module's argument bytes and its parsed collectives a window
+# (``JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_dryrun_refs.py sim 8``)
+DRYRUN_SIM_REF = dict(argument_bytes=10_416,
+                      collective_by_op={"all-reduce": 14.0,
+                                        "collective-permute": 256.0},
+                      collective_op_count=3)
+DRYRUN_SIM_SHARDS = 8
+
+
+def _phase10_arg_bytes(dev):
+    """What phase 10 (d) hands its step, made as it makes it: hymba-1.5b's
+    bf16 parameters, f32 AdamW state and one DataPipeline batch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.models.transformer import param_tree
+    from repro_torch.optim import adamw_init
+    m = TRAIN_MAIN
+    cfg = get_config(m["arch"])
+    _free(dev)
+    model, _ = _init_model(cfg, dev, torch.bfloat16)
+    opt = adamw_init(param_tree(model))
+    data = DataPipeline(cfg, batch=m["batch"], seq=m["seq"], seed=0)
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in data(0).items()}
+    n = _step_arg_bytes(model, opt, tb)
+    del model, opt, tb
+    _free(dev)
+    return n
+
+
+def check_dryrun(dev, train=None):
+    """Phase 12: the dry run (``repro_torch.launch.dryrun``) on the card's
+    machine: every step is traced on ``meta``, so nothing is allocated on
+    the card and no kernel launches.  (a) hymba-1.5b's training cell at
+    phase 10 (d)'s B x S, f32 moments and block remat, on a 1x1 mesh: its
+    planned argument bytes equal the bytes phase 10 (d) hands its step,
+    exactly; the planned temp beside the measured peak and the planned
+    bound beside the measured step (from ``train``, phase 10's record,
+    when it ran in this process); (b) ``run_cell`` for deepseek-v2-236b x
+    decode_32k on 16x16, argument bytes equal to DRYRUN_DSV2_ARGS; (c)
+    ``run_sim_cell`` on DRYRUN_SIM_SHARDS placements of the card against
+    DRYRUN_SIM_REF."""
+    import dataclasses
+    import math
+    import os
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.ssd import kernel as ssdk
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import LogicalMesh
+    from repro_torch.train.step import TrainHParams
+    card = _card()
+    t_phase = time.perf_counter()
+    rec = {"card": card}
+    parts = rec["parts_s"] = {}
+    before = (fak.launches, ssdk.launches)
+
+    # (a)
+    t = time.perf_counter()
+    m = TRAIN_MAIN
+    cfg = get_config(m["arch"])
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=m["seq"],
+                                global_batch=m["batch"])
+    (plan,), trace_s, _ = dryrun.plan_cells(
+        cfg, shape, [LogicalMesh((1, 1), ("data", "model"))],
+        TrainHParams(lr=m["lr"]))
+    an = roofline.analyze(plan, cfg, shape, 1)
+    d = (train or {}).get("d")
+    held = d["step_arg_bytes"] if d else _phase10_arg_bytes(dev)
+    if plan.argument_bytes != held:
+        raise AssertionError(f"dry run (a): planned argument bytes "
+                             f"{plan.argument_bytes}, phase 10 (d)'s step "
+                             f"is handed {held}")
+    planned_gib = (plan.argument_bytes + plan.temp_bytes) / 2 ** 30
+    bound_ms = an["step_lower_bound_s"] * 1e3
+    rec["a"] = dict(arch=cfg.name, batch=m["batch"], seq=m["seq"],
+                    argument_bytes=plan.argument_bytes, held_bytes=held,
+                    temp_bytes=plan.temp_bytes, planned_gib=planned_gib,
+                    measured_peak_gib=d["peak_gib"] if d else None,
+                    bound_ms=bound_ms, dominant=an["dominant"],
+                    compute_ms=an["compute_s"] * 1e3,
+                    memory_ms=an["memory_s"] * 1e3,
+                    step_ms=d["step_ms_mean"] if d else None,
+                    trace_s=trace_s)
+    log(f"dry run (a): {cfg.name} train B={m['batch']} x S={m['seq']} on "
+        f"1x1: planned arguments {plan.argument_bytes} B = phase 10 (d)'s "
+        f"{held} B; planned arguments + temp {planned_gib:.2f} GiB against "
+        + (f"a measured peak of {d['peak_gib']:.2f} GiB" if d else
+           "a peak not measured in this run (phase 10 did not run)")
+        + f"; planned bound {bound_ms:.1f} ms ({an['dominant']}: compute "
+        f"{rec['a']['compute_ms']:.1f}, memory {rec['a']['memory_ms']:.1f})"
+        + (f" against a measured step of {d['step_ms_mean']:.1f} ms" if d
+           else " (the step not measured in this run)")
+        + f"; traced in {trace_s:.1f} s")
+    parts["a"] = time.perf_counter() - t
+
+    # (b)
+    t = time.perf_counter()
+    r = dryrun.run_cell("deepseek-v2-236b", "decode_32k", False)
+    mem = r.get("memory_per_device") or {}
+    if r["status"] != "ok" or mem.get("argument_bytes") != DRYRUN_DSV2_ARGS:
+        raise AssertionError(f"dry run (b): {r.get('status')}, argument "
+                             f"bytes {mem.get('argument_bytes')}, want "
+                             f"{DRYRUN_DSV2_ARGS}")
+    terms = [r[k] for k in ("compute_s", "memory_s", "collective_s")]
+    if not all(math.isfinite(x) and x > 0 for x in terms):
+        raise AssertionError(f"dry run (b): terms {terms}")
+    rec["b"] = {k: r[k] for k in (
+        "arch", "shape", "mesh", "trace_s", "memory_per_device",
+        "compute_s", "memory_s", "collective_s", "dominant",
+        "collective_by_op", "step_lower_bound_s", "roofline_fraction")}
+    parts["b"] = time.perf_counter() - t
+
+    # (c)
+    t = time.perf_counter()
+    old = os.environ.get("REPRO_TORCH_FORCE_DEVICES")
+    os.environ["REPRO_TORCH_FORCE_DEVICES"] = str(DRYRUN_SIM_SHARDS)
+    try:
+        r = dryrun.run_sim_cell(False)
+    finally:
+        if old is None:
+            del os.environ["REPRO_TORCH_FORCE_DEVICES"]
+        else:
+            os.environ["REPRO_TORCH_FORCE_DEVICES"] = old
+    got = dict(argument_bytes=r["argument_bytes_per_shard"],
+               collective_by_op=r["collective_by_op"],
+               collective_op_count=r["collective_op_count"])
+    if r["shape"] != f"{DRYRUN_SIM_SHARDS}shards" or got != DRYRUN_SIM_REF:
+        raise AssertionError(f"dry run (c): {r['shape']} {got}, want "
+                             f"{DRYRUN_SIM_REF}")
+    rec["c"] = r
+    parts["c"] = time.perf_counter() - t
+
+    if (fak.launches, ssdk.launches) != before:
+        raise AssertionError(f"the dry run launched a kernel: flash "
+                             f"{before[0]} -> {fak.launches}, ssd "
+                             f"{before[1]} -> {ssdk.launches}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{card}] phase 12 (dry run) took {rec['phase_s']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    return rec
+
+
 def main():
     try:
         import torch
@@ -4381,6 +4555,11 @@ def main():
         setup()
         print(json.dumps({"train": check_train(dev)}), flush=True)
         return 0
+    if sys.argv[1:] == ["--dryrun"]:
+        # phase 12 alone, after the card line
+        log(_card())
+        print(json.dumps({"dryrun": check_dryrun(dev)}), flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
@@ -4406,6 +4585,7 @@ def main():
         train["e"] = launch[0].finish()
         train["parts_s"]["e_wait"] = time.perf_counter() - t
     scale = check_scale(finish_launch)
+    dry = check_dryrun(dev, train)
     fa_bf16 = launches["flash_attention"] + \
         models["launches"]["bfloat16"] + \
         train["d"]["launches"]["flash_attention"]
@@ -4440,6 +4620,7 @@ def main():
     print(json.dumps({"search": search}))
     print(json.dumps({"train": train}))
     print(json.dumps({"scale": scale}))
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"kernels": [{k: kr[k] for k in keys}
                                   for kr in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -49,8 +49,9 @@ in it).
 Component code is untouched — the same single-instance ``tick_fn``
 written for the single-device engine runs here, which is the paper's
 "transparent parallel simulation" claim (DX-3).  ``ShardedSim.lower``
-(the reference's AOT lowering for its dry run) is not ported (ROADMAP
-queue 1 item 11).
+plans a run for the dry run (``repro_torch.launch.dryrun``) without
+running it: the per-shard bytes of the stacked state and the collectives
+of a window.
 """
 from __future__ import annotations
 
@@ -63,7 +64,7 @@ import torch
 from .. import resolve_device
 from .component import ComponentKind, TickResult
 from .engine import (INF, LaneBlock, SimBuilder, _align_after,
-                     canonical_device, tree_map)
+                     canonical_device, tree_leaves, tree_map)
 from .message import MSG_WORDS, W_DST, W_TIME, f2i
 from .ports import EPS
 
@@ -376,3 +377,21 @@ class ShardedSim:
         out = parts[0] if len(parts) == 1 else tree_map(
             lambda *xs: torch.cat([x.to(dev0) for x in xs]), *parts)
         return (out, w) if return_windows else out
+
+    def lower(self, until: float = 1024.0) -> dict:
+        """Plan :meth:`run` for the dry run; runs nothing.  The
+        reference's AOT lowering, read as its dry run reads it:
+        ``argument_bytes`` is one shard's share of the stacked state, and
+        ``collectives`` the exchange's ``(op, result bytes a shard, group,
+        times)`` each window -- the ``pmin`` of the loop's test and of the
+        window an all-reduce of one f32 each, and each peer offset's
+        mailbox slab ``[C, MB, W]`` int32 a collective-permute.  ``until``
+        bounds the run, not a window, so it changes neither."""
+        st = self.init_state()
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(st))
+        D = self.n_shards
+        slab = self.chan * self.mailbox * MSG_WORDS * 4
+        return {"argument_bytes": nbytes // D,
+                "collectives": [("all-reduce", 4, D, 2),
+                                ("collective-permute", slab, D,
+                                 self.n_peers)]}

@@ -20,9 +20,16 @@ from .ref import ssd_chunked
 
 
 def on_card(t) -> bool:
-    """Whether ``t`` goes to the CUDA kernel (else to the plain form);
-    ``ops`` routes by it too."""
-    return t.device.type != "cpu"
+    """Whether ``t`` goes to the CUDA kernel: ``cuda`` does, ``cpu`` and
+    ``meta`` (the dry run's trace, which allocates nothing) go to the
+    plain form; any other device raises.  ``ops`` routes by it too."""
+    kind = t.device.type
+    if kind == "cuda":
+        return True
+    if kind in ("cpu", "meta"):
+        return False
+    raise ValueError(f"no route for a tensor on {t.device}: the kernel "
+                     "takes cuda, the plain form cpu or meta")
 
 
 class SSDFn(torch.autograd.Function):

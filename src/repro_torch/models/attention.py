@@ -34,8 +34,10 @@ def rope(x, positions, theta: float):
 
 def attn_specs(cfg):
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {"wq": PSpec((d, H, hd)), "wk": PSpec((d, KV, hd)),
-            "wv": PSpec((d, KV, hd)), "wo": PSpec((H, hd, d))}
+    return {"wq": PSpec((d, H, hd), ("fsdp", "tensor_q", None)),
+            "wk": PSpec((d, KV, hd), ("fsdp", "tensor_kv", None)),
+            "wv": PSpec((d, KV, hd), ("fsdp", "tensor_kv", None)),
+            "wo": PSpec((H, hd, d), ("tensor_q", None, "fsdp"))}
 
 
 def _mask(q_pos, kv_pos, causal, window):

@@ -1,9 +1,16 @@
 """Parameter specs, their initialisation, and the basic layers (norms, MLPs,
 embeddings, the loss).  Counterpart of ``repro.models.layers``.
 
-A :class:`PSpec` carries a parameter's shape and init kind; the JAX
-package's sharding axes have no single-card meaning and are dropped.
-:func:`init_params` materialises a spec tree from a ``torch.Generator``.
+A :class:`PSpec` carries a parameter's shape, its logical sharding axes
+(``'fsdp'``, ``'tensor'``, ... or ``None`` per dim, as in the JAX package)
+and its init kind.  The same tree serves three uses:
+
+* :func:`init_params`     -- real tensors from a ``torch.Generator``;
+* :func:`abstract_params` -- ``meta`` tensors for the dry run (the
+  counterpart of the reference's ``ShapeDtypeStruct``s): shapes and
+  dtypes, no storage;
+* :func:`make_pspecs`     -- PartitionSpecs for a mesh through the axis
+  rules of ``repro_torch.parallel.sharding``.
 """
 from __future__ import annotations
 
@@ -13,12 +20,20 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import P
+
 
 @dataclasses.dataclass(frozen=True)
 class PSpec:
     shape: tuple
+    axes: tuple          # logical axis name per dim: 'fsdp' | 'tensor' | None
     init: str = "normal"  # normal | zeros | ones
     scale: float | None = None
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"PSpec shape {self.shape} has "
+                             f"{len(self.shape)} dims, axes {self.axes}")
 
 
 def init_params(tree, generator: torch.Generator, dtype=torch.bfloat16):
@@ -48,6 +63,28 @@ def init_params(tree, generator: torch.Generator, dtype=torch.bfloat16):
         return {k: walk(t[k]) for k in sorted(t)}
 
     return walk(tree)
+
+
+def _map_specs(fn, tree):
+    if isinstance(tree, PSpec):
+        return fn(tree)
+    return {k: _map_specs(fn, v) for k, v in tree.items()}
+
+
+def abstract_params(tree, dtype=torch.bfloat16):
+    """The spec tree as ``meta`` tensors of ``dtype``: what the dry run
+    traces with.  Nothing is allocated."""
+    return _map_specs(
+        lambda ps: torch.empty(ps.shape, dtype=dtype, device="meta"), tree)
+
+
+def partition_spec(ps: PSpec, rules: dict) -> tuple:
+    """The spec's PartitionSpec under ``rules`` (logical -> mesh axes)."""
+    return P(*[rules.get(a) if a is not None else None for a in ps.axes])
+
+
+def make_pspecs(tree, rules: dict):
+    return _map_specs(lambda ps: partition_spec(ps, rules), tree)
 
 
 def promote(*ts):
@@ -87,14 +124,17 @@ def norm(cfg, x, w):
 
 
 def norm_spec(cfg):
-    return PSpec((cfg.d_model,), "zeros" if cfg.norm == "rms" else "ones")
+    return PSpec((cfg.d_model,), (None,),
+                 "zeros" if cfg.norm == "rms" else "ones")
 
 
 def mlp_specs(d_model: int, d_ff: int, act: str):
     if act == "swiglu":
-        return {"wi": PSpec((d_model, d_ff)), "wg": PSpec((d_model, d_ff)),
-                "wo": PSpec((d_ff, d_model))}
-    return {"wi": PSpec((d_model, d_ff)), "wo": PSpec((d_ff, d_model))}
+        return {"wi": PSpec((d_model, d_ff), ("fsdp", "tensor")),
+                "wg": PSpec((d_model, d_ff), ("fsdp", "tensor")),
+                "wo": PSpec((d_ff, d_model), ("tensor", "fsdp"))}
+    return {"wi": PSpec((d_model, d_ff), ("fsdp", "tensor")),
+            "wo": PSpec((d_ff, d_model), ("tensor", "fsdp"))}
 
 
 def mlp(params, x, act: str):
@@ -111,11 +151,14 @@ def softcap(x, cap: float):
 
 
 def embed_specs(cfg):
-    s = {"tok": PSpec((cfg.vocab_padded, cfg.d_model), scale=1.0)}
+    s = {"tok": PSpec((cfg.vocab_padded, cfg.d_model), ("tensor", "fsdp"),
+                      scale=1.0)}
     if not cfg.tie_embeddings:
-        s["unembed"] = PSpec((cfg.d_model, cfg.vocab_padded))
+        s["unembed"] = PSpec((cfg.d_model, cfg.vocab_padded),
+                             ("fsdp", "tensor"))
     if cfg.frontend == "audio":
-        s["frontend_proj"] = PSpec((cfg.frontend_dim, cfg.d_model))
+        s["frontend_proj"] = PSpec((cfg.frontend_dim, cfg.d_model),
+                                   (None, "fsdp"))
     return s
 
 

@@ -25,14 +25,17 @@ NEG = -1e30
 def mla_specs(cfg):
     d, H = cfg.d_model, cfg.n_heads
     qd = cfg.qk_nope_dim + cfg.qk_rope_dim
-    return {"wq_a": PSpec((d, cfg.q_lora)),
-            "wq_b": PSpec((cfg.q_lora, H, qd)),
-            "wkv_a": PSpec((d, cfg.kv_lora + cfg.qk_rope_dim)),
-            "wk_b": PSpec((cfg.kv_lora, H, cfg.qk_nope_dim)),
-            "wv_b": PSpec((cfg.kv_lora, H, cfg.v_head_dim)),
-            "wo": PSpec((H, cfg.v_head_dim, d)),
-            "q_norm": PSpec((cfg.q_lora,), "zeros"),
-            "kv_norm": PSpec((cfg.kv_lora,), "zeros")}
+    return {"wq_a": PSpec((d, cfg.q_lora), ("fsdp", None)),
+            "wq_b": PSpec((cfg.q_lora, H, qd), (None, "tensor_q", None)),
+            "wkv_a": PSpec((d, cfg.kv_lora + cfg.qk_rope_dim),
+                           ("fsdp", None)),
+            "wk_b": PSpec((cfg.kv_lora, H, cfg.qk_nope_dim),
+                          (None, "tensor_q", None)),
+            "wv_b": PSpec((cfg.kv_lora, H, cfg.v_head_dim),
+                          (None, "tensor_q", None)),
+            "wo": PSpec((H, cfg.v_head_dim, d), ("tensor_q", None, "fsdp")),
+            "q_norm": PSpec((cfg.q_lora,), (None,), "zeros"),
+            "kv_norm": PSpec((cfg.kv_lora,), (None,), "zeros")}
 
 
 def _project_q(params, cfg, x, q_pos):

@@ -18,15 +18,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import constrain
+
 from .layers import PSpec, matmul, mlp, mlp_specs
 
 
 def moe_specs(cfg):
     d, E, eff = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
-    s = {"router": PSpec((d, E), scale=0.02),
-         "we_i": PSpec((E, d, eff)),
-         "we_g": PSpec((E, d, eff)),
-         "we_o": PSpec((E, eff, d))}
+    s = {"router": PSpec((d, E), (None, None), scale=0.02),
+         "we_i": PSpec((E, d, eff), ("expert", "fsdp", "expert_ff")),
+         "we_g": PSpec((E, d, eff), ("expert", "fsdp", "expert_ff")),
+         "we_o": PSpec((E, eff, d), ("expert", "expert_ff", "fsdp"))}
     if cfg.n_shared_experts:
         s["shared"] = mlp_specs(d, cfg.n_shared_experts * eff, "swiglu")
     return s
@@ -96,7 +98,8 @@ def moe_block(params, cfg, x, capacity: int | None = None):
     # expert-major buffer with one spare row for every dropped choice
     buf = torch.zeros((E * C + 1, d), dtype=xf.dtype, device=x.device)
     buf[slot.reshape(-1)] = xf[:, None, :].expand(T, K, d).reshape(T * K, d)
-    buf = buf[:E * C].reshape(E, C, d)
+    buf = constrain(buf[:E * C].reshape(E, C, d), "expert", "moe_cap",
+                    None)                          # a2a/EP boundary
 
     # expert FFN (swiglu), batched over E
     h = F.silu(torch.bmm(buf, params["we_g"].to(xf.dtype))) * \
@@ -107,6 +110,7 @@ def moe_block(params, cfg, x, capacity: int | None = None):
     gathered = out_flat[torch.clamp(slot, max=E * C - 1)]      # [T,K,d]
     y = torch.sum(torch.where(keep[:, :, None], gathered, 0)
                   * gates.to(gathered.dtype)[:, :, None], dim=1)
+    y = constrain(y, "fsdp", None)
     if cfg.n_shared_experts:
         y = y + mlp(params["shared"], xf, "swiglu")
     return y.reshape(B, S, d), aux

@@ -19,14 +19,15 @@ def ssm_specs(cfg):
     d, di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     conv_dim = di + 2 * N
     return {
-        "in_proj": PSpec((d, 2 * di + 2 * N + H)),
-        "conv_w": PSpec((cfg.conv_kernel, conv_dim), scale=0.5),
-        "conv_b": PSpec((conv_dim,), "zeros"),
-        "A_log": PSpec((H,), "zeros"),
-        "D": PSpec((H,), "ones"),
-        "dt_bias": PSpec((H,), "zeros"),
-        "norm_w": PSpec((di,), "zeros"),
-        "out_proj": PSpec((di, d)),
+        "in_proj": PSpec((d, 2 * di + 2 * N + H), ("fsdp", None)),
+        "conv_w": PSpec((cfg.conv_kernel, conv_dim), (None, None),
+                        scale=0.5),
+        "conv_b": PSpec((conv_dim,), (None,), "zeros"),
+        "A_log": PSpec((H,), (None,), "zeros"),
+        "D": PSpec((H,), (None,), "ones"),
+        "dt_bias": PSpec((H,), (None,), "zeros"),
+        "norm_w": PSpec((di,), (None,), "zeros"),
+        "out_proj": PSpec((di, d), (None, "fsdp")),
     }
 
 

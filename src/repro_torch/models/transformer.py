@@ -25,6 +25,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
+from repro_torch.parallel.sharding import constrain
 
 from . import attention as attn_mod
 from . import mla as mla_mod
@@ -136,8 +137,15 @@ def param_tree(model: Model) -> dict:
 def init_model(cfg, seed: int = 0, device=None, dtype=torch.bfloat16,
                requires_grad: bool = False):
     """Random weights from the port's own init, drawn on ``device`` (the
-    card unless the caller asks for the CPU) from a seeded generator."""
+    card unless the caller asks for the CPU) from a seeded generator.  A
+    model on ``meta`` has no weights to draw: build it from
+    ``layers.abstract_params(model_specs(cfg))``."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        raise ValueError(
+            "init_model draws weights, which a meta model does not have: "
+            "use Model(cfg, abstract_params(model_specs(cfg), dtype)) "
+            "(repro_torch.models.layers.abstract_params)")
     g = torch.Generator(device=dev).manual_seed(seed)
     return Model(cfg, init_params(model_specs(cfg), g, dtype), requires_grad)
 
@@ -273,7 +281,10 @@ def forward(params, cfg, batch, mode: str = "train", cache=None,
     the JAX package.  In ``train`` mode with gradients on and
     ``cfg.remat != "none"``, each layer runs under
     ``torch.utils.checkpoint`` (as the JAX package's ``jax.checkpoint``),
-    so its kernels launch again in the backward pass.
+    so its kernels launch again in the backward pass.  Inside
+    ``parallel.sharding.activation_sharding`` (the dry run's trace) each
+    layer's input and the logits record their activation specs where the
+    reference constrains them; elsewhere ``constrain`` does nothing.
     """
     assert mode in ("train", "prefill", "decode")
     if mode == "decode":
@@ -288,14 +299,18 @@ def forward(params, cfg, batch, mode: str = "train", cache=None,
         layer = partial(checkpoint, layer, use_reentrant=False,
                         **_REMAT.get(cfg.remat, {}))
     ncs, aux = [], 0.0
+    n0 = 1 if cfg.first_dense_d_ff else 0
     for li, p in enumerate(_layer_params(params, cfg)):
         c = None if cache is None else {k: t[li] for k, t in cache.items()}
+        if li >= n0:        # the reference's scan body; layer0 is outside
+            x = constrain(x, "fsdp", None, None)
         x, nc, a = layer(p, x, q_pos, windows[li], c, cache_len, mode)
         ncs.append(nc)
         aux = aux + a
 
     x = norm(cfg, x, params["final_norm"])
-    logits = unembed(params["embed"], cfg, x)
+    logits = constrain(unembed(params["embed"], cfg, x), "fsdp", None,
+                       "tensor")
     aux = aux / max(n_scanned(cfg), 1)
 
     new_cache = None

@@ -3,9 +3,10 @@ clip -> AdamW.  Counterpart of ``repro.train.step``.
 
 The model's forward launches the hand-written kernels on the card (their
 autograd Functions carry the gradient through them); the step itself is
-plain PyTorch.  The reference's mesh tooling (``opt_pspecs``,
-``batch_pspecs``, ``assemble_train``, ``abstract_batch``) has no
-one-card meaning and waits for the dry-run's port.
+plain PyTorch.  The same factory serves real training and the dry run
+(``repro_torch.launch.dryrun``): :func:`assemble_train` gives the step
+with ``meta`` arguments (nothing allocated) and the PartitionSpecs of
+every leaf on a mesh (:func:`opt_pspecs`, :func:`batch_pspecs`).
 """
 from __future__ import annotations
 
@@ -15,7 +16,10 @@ import torch
 
 from repro_torch.core.engine import ref_leaves, ref_map
 from repro_torch.models import transformer as tfm
-from repro_torch.optim import adamw_update, clip_by_global_norm
+from repro_torch.models.layers import abstract_params, make_pspecs
+from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm
+from repro_torch.parallel.sharding import (P, batch_pspec,
+                                           make_rules_for_mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,3 +80,97 @@ def make_train_step(cfg, hp: TrainHParams):
         return loss, gnorm, model, opt_state
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# PartitionSpecs and meta arguments for a mesh (the dry run)
+# ---------------------------------------------------------------------------
+def opt_pspecs(param_pspecs, moments_dtype="float32"):
+    """Optimizer-state PartitionSpecs mirror the parameter sharding (ZeRO-3:
+    moments fully sharded the same way as their parameters).
+
+    int8 moments are blocks of the flattened tensor: their block axis
+    takes the first parameter axis's assignment, as in the reference.  A
+    leaf under ``"layers"`` is one layer of the reference's stacked leaf,
+    whose first axis is the unsharded scan axis, so its blocks are
+    replicated there and here."""
+    def mom(ps, stacked):
+        if moments_dtype == "int8":
+            lead = None if stacked or not len(ps) else ps[0]
+            return {"q": P(lead), "s": P(lead)}
+        return ps
+
+    def walk(t, stacked):
+        if isinstance(t, P):
+            return mom(t, stacked)
+        return {k: walk(v, stacked or k == "layers") for k, v in t.items()}
+
+    return {"m": walk(param_pspecs, False), "v": walk(param_pspecs, False),
+            "count": P()}
+
+
+def batch_pspecs(cfg, mesh, shape):
+    """PartitionSpecs for the input batch of a given assigned shape."""
+    bp = batch_pspec(mesh, shape.global_batch)
+    specs = {}
+    if cfg.frontend == "audio":
+        specs["features"] = P(*bp, None, None)
+        specs["labels"] = P(*bp, None)
+        specs["mask"] = P(*bp, None)
+    elif cfg.frontend == "vision":
+        specs["tokens"] = P(*bp, None)
+        specs["vision"] = P(*bp, None, None)
+    else:
+        specs["tokens"] = P(*bp, None)
+    return specs
+
+
+def abstract_batch(cfg, shape):
+    """``meta`` stand-ins for every model input (the reference's
+    ShapeDtypeStructs, same shapes and dtypes)."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def f(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    if shape.kind == "decode":
+        return {"tokens": f((B, 1), torch.int32)}
+    if cfg.frontend == "audio":
+        return {"features": f((B, S, cfg.frontend_dim), torch.float32),
+                "labels": f((B, S), torch.int32),
+                "mask": f((B, S), torch.float32)}
+    if cfg.frontend == "vision":
+        nv = cfg.n_vision_tokens
+        return {"tokens": f((B, S - nv), torch.int32),
+                "vision": f((B, nv, cfg.d_model), torch.float32)}
+    return {"tokens": f((B, S), torch.int32)}
+
+
+@dataclasses.dataclass
+class Assembled:
+    """A step ready to plan: the function, its ``meta`` arguments, and the
+    PartitionSpecs of its arguments and results on the mesh (trees shaped
+    like them; a model's entry is shaped like ``param_tree``)."""
+    step: object
+    args: tuple
+    in_specs: tuple
+    out_specs: tuple
+
+
+def assemble_train(cfg, mesh, shape, hp: TrainHParams | None = None):
+    """The train step with ``meta`` (model, optimizer state, batch) and
+    their specs on ``mesh``: the reference's ``assemble_train`` with
+    PartitionSpecs in place of in/out shardings.  The step returns
+    (loss, gnorm, model, state)."""
+    hp = hp or TrainHParams()
+    rules = make_rules_for_mesh(cfg, mesh)
+    specs = tfm.model_specs(cfg)
+    p_pspecs = make_pspecs(specs, rules)
+    model = tfm.Model(cfg, abstract_params(specs), requires_grad=True)
+    opt_state = adamw_init(tfm.param_tree(model),
+                           moments_dtype=hp.moments_dtype)
+    o_pspecs = opt_pspecs(p_pspecs, hp.moments_dtype)
+    b_pspecs = batch_pspecs(cfg, mesh, shape)
+    batch = abstract_batch(cfg, shape)
+    return Assembled(make_train_step(cfg, hp), (model, opt_state, batch),
+                     (p_pspecs, o_pspecs, b_pspecs),
+                     (P(), P(), p_pspecs, o_pspecs))

@@ -40,7 +40,9 @@ def test_importing_every_module_loads_no_jax_or_repro():
               "optim.compress", "data.pipeline", "train", "train.step",
               "train.loop", "launch.train",
               "kernels.flash_attention.autograd", "kernels.ssd.autograd",
-              "core.pdes", "launch.mesh", "dse.cache"):
+              "core.pdes", "launch.mesh", "dse.cache", "parallel",
+              "parallel.sharding", "launch.dryrun", "launch.roofline",
+              "launch.report", "serve.step"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

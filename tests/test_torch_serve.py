@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as jax_smoke
+from repro.core.tracing import current_task
 from repro.models import transformer as jtfm
 from repro.models.layers import init_params
 from repro.serve.engine import ServeEngine as JaxEngine
@@ -206,6 +207,13 @@ def test_vision_model_serves_text_prompts():
         eng = JaxEngine(cfg, jp, max_batch=1, max_len=16)
         eng.submit([1, 2, 3], max_new=2)
         eng.run_until_idle()
+    # the raise leaves the request's task open on the JAX package's
+    # thread-local task stack, where a later test in this process would
+    # take it as its parent: end it
+    left = current_task()
+    assert left is not None and left.category == "request"
+    eng.dom.end_task(left)
+    assert current_task() is None
     text = dataclasses.replace(cfg, frontend="none")
     toks = np.random.default_rng(4).integers(0, cfg.vocab, (1, 9))
     lj, _, _ = jtfm.forward(jp, text, {"tokens": jnp.asarray(toks, jnp.int32)},
