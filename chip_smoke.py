@@ -10,11 +10,17 @@ Phases (each raises on failure, and the run then exits non-zero):
   2. kernels: each kernel against its plain PyTorch version on the card,
      in bf16 (the tensor-core kernels) and f32 (the CUDA-core kernels), at
      hymba-1.5b's prefill shapes (ragged S, S > window, and S=2048 for
-     SSD), at mamba2-130m's SSD widths (where the f32 kernel is also held
-     against an f64 recurrence), at the JAX package's kernel-test cases
-     and at the edges of what the kernels accept, with the tolerances of
-     those tests, and one SSD call's output fed straight into the next;
-     kernel, plain and library times;
+     SSD) and its training shape (B=2 x S=2048, flash at the window and
+     the global one), at mamba2-130m's SSD widths (where the f32 kernel is
+     also held against an f64 recurrence), at the JAX package's
+     kernel-test cases and at the edges of what the kernels accept, with
+     the tolerances of those tests; the bf16 kernels' tiling edges (S not
+     a multiple of a tile, S below one, B > 1 with GQA groups of 5 and 2,
+     q, k and v as views of one fused projection, as views TMA cannot
+     read and as B=1 views whose batch stride is no multiple of 8), the C
+     launcher's plan against ``kernel.plan``, and one SSD call's output
+     fed straight into the next; kernel, plain and library times beside
+     each bound;
   3. serve: a small f32 hybrid model on the card against the same model on
      the CPU (plain versions), which is the f32 kernels' path, then
      hymba-1.5b at full width and depth with seeded random bf16 weights
@@ -122,7 +128,9 @@ Phases (each raises on failure, and the run then exits non-zero):
      recompute), step ms, tokens/s, peak memory, the final checkpoint's
      bytes and seconds, a profiled step, each kernel's forward against
      its plain backward; (e) ``python -m repro_torch.launch.train`` on the
-     card.
+     card; (f) suspect S1 (ROADMAP queue 3): (e)'s run of hymba-smoke in
+     bf16 from parameters drawn on the CPU, on the card and on the CPU,
+     both loss curves within a bf16 ulp of the loss a step.
   11. scale-out: transparent parallel simulation and the campaign cache
      (``repro_torch.core.pdes``, ``dse`` ``shard=``, ``dse.cache``) on a
      mesh naming cuda:0 up to 8 times (``REPRO_TORCH_FORCE_DEVICES``; no
@@ -164,10 +172,12 @@ Then the engine's, the DSE path's, the models', the sims', the search's,
 the training's, the scale-out's and the dry run's JSON records, the
 kernels' JSON record (the line before the last; the launches add phase
 7's model runs and phase 10's training to phase 3's), and ``{"ok": true,
-"device": {...}}`` as the last line.  ``python3 chip_smoke.py --engine`` runs phase
-5 alone, ``--dse`` phase 6, ``--models`` phases 1 and 7, ``--sims`` phase
+"device": {...}}`` as the last line.  ``python3 chip_smoke.py --kernels`` runs
+phases 1 and 2 alone, ``--engine`` phase 5, ``--dse`` phase 6, ``--models`` phases 1 and 7, ``--sims`` phase
 8, ``--search`` phase 9, ``--train`` phases 1 and 10, ``--scale`` phase
-11, ``--dryrun`` phase 12.
+11, ``--dryrun`` phase 12; ``--times [ROOT ...]`` times the bf16 kernels
+at TIMED_FA and TIMED_SSD, of this checkout or of each checkout named in
+turn (``compare_times``).
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -213,8 +223,32 @@ SSD_EDGE = [
     (1, 70, 2, 5, 7, 32),
     (2, 1030, 2, 64, 128, 1024),
 ]
+# the bf16 kernels' tiling (64-key tiles; blocks of 128 (position, head)
+# rows; 64-row SSD tiles): S not a multiple of a tile, S below one tile,
+# B > 1 with GQA groups of 5 (hymba) and 2 (gemma2); bf16 only
+FA_TILE_EDGE = [  # B, S, H, KV, hd, causal, window, cap
+    (1, 1030, 25, 5, 64, True, 1024, 0.0),
+    (1, 37, 25, 5, 64, True, 0, 0.0),
+    (2, 300, 25, 5, 64, True, 1024, 0.0),
+    (2, 384, 32, 16, 128, True, 4096, 50.0),
+]
+SSD_TILE_EDGE = [  # B, S, H, P, N, chunk
+    (1, 1030, 50, 64, 16, 128),
+    (1, 20, 50, 64, 16, 128),
+    (2, 300, 50, 64, 16, 128),
+]
 # (B, S, H, P, N, chunk) at mamba2-130m's widths
 MAMBA2_SSD = (1, 512, 24, 64, 128, 256)
+# the bf16 kernels' timed shapes (``--times``): hymba's S=256 and S=1536
+# prompts (window 1024), hubert's hd 80 and the training shape at both
+# windows; SSD at hymba's S=256, S=2048 and training shapes, mamba2-130m's
+TIMED_FA = [(1, 256, 25, 5, 64, True, 1024, 0.0),
+            (1, 1536, 25, 5, 64, True, 1024, 0.0),
+            (2, 500, 16, 16, 80, False, 0, 0.0),
+            (2, 2048, 25, 5, 64, True, 1024, 0.0),
+            (2, 2048, 25, 5, 64, True, 0, 0.0)]
+TIMED_SSD = [(1, 256, 50, 64, 16, 128), (1, 2048, 50, 64, 16, 128),
+             (2, 2048, 50, 64, 16, 128), MAMBA2_SSD]
 PROMPT_LENS = (256, 200, 384, 130, 64)
 MAX_NEW = 32
 
@@ -541,17 +575,20 @@ def setup():
     logs = _build.build_all()
     log(f"built kernels {sorted(logs) or 'none (cached)'} in "
         f"{time.perf_counter() - t:.2f} s")
-    entry = re.compile(r"\d(fa_tc_fwd|fa_fwd|ssd_tc_(?:state|pass|scan)"
-                       r"|ssd_fwd)(\w*)")
+    entry = re.compile(r"\d(fa_tc_fwd|fa_fwd|ssd_tc_fwd|ssd_fwd)(\w*)")
     for name, text in logs.items():
         kernel = "?"
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 m = entry.search(line)
-                hd = re.search(r"Li(\d+)E", m.group(2)) if m else None
-                kernel = (m.group(1) if m else "?") + \
-                    (f"<{hd.group(1)}>" if hd else "")
-            if "registers" in line or "spill" in line:
+                # template arguments: head dim or padded N, then split
+                targs = re.findall(r"L([ib])(\d+)E", m.group(2)) if m else []
+                kernel = (m.group(1) if m else "?") + (
+                    "<" + ", ".join(v if t == "i" else ("split" if v == "1"
+                                                        else "whole")
+                                    for t, v in targs) + ">" if targs else "")
+            if ("registers" in line or "spill" in line
+                    or "Performance" in line):
                 log(f"  {name} {kernel}: {line.strip()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -577,12 +614,109 @@ def _attn_pairs(S, causal, window):
     return sum(min(q + 1, window) for q in range(S))
 
 
+def _sdpa(q, k, v, S, window):
+    """One SDPA call on the same causal, windowed GQA attention (the
+    library yardstick; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    G = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2)
+    kh = k.repeat_interleave(G, dim=2).transpose(1, 2)
+    vh = v.repeat_interleave(G, dim=2).transpose(1, 2)
+    if 0 < window < S:
+        i = torch.arange(S, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=mask)
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+
+def _batch_stride_999(t):
+    """A copy of ``t[0]`` as a [1, ...] view whose batch stride is 999."""
+    c = t[0].contiguous()
+    return c.as_strided((1, *c.shape), (999, *c.stride()))
+
+
+def check_flash_tiles(dev, gen):
+    """The bf16 kernel's tiling against the plain version: FA_TILE_EDGE,
+    q, k and v as views of one fused projection and as B=1 views with a
+    batch stride of 999 (TMA reads both in place) and as views TMA cannot
+    read (copied, counted), and the plan that ``fa_forward_tc`` launches
+    with equal to ``kernel.plan``."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import _build, _tma
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fn = _build.load("flash_attention_tc").fa_plan_tc
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bf = torch.bfloat16
+    shapes = []
+    for B, S, H, KV, hd, causal, window, cap in FA_TILE_EDGE:
+        q, k, v = _qkv(gen, dev, B, S, H, KV, hd, bf)
+        kw = dict(causal=causal, window=window, cap=cap)
+        out = fak.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        e = compare("flash_attention", out, flash_attention_ref(q, k, v, **kw),
+                    "bfloat16")
+        shapes.append((B, S, H, KV))
+        log(f"flash_attention fa_forward_tc tile-edge B={B} S={S} H={H} "
+            f"KV={KV} hd={hd} causal={causal} window={window} cap={cap} "
+            f"bfloat16: max_abs_err {e:.3g}, plan {fak.plan(B, S, H, KV, sms)}")
+    # views of one fused projection [B, S, (H + 2 KV) hd]
+    B, S, H, KV, hd = 2, 300, 25, 5, 64
+    qkv = torch.randn((B, S, (H + 2 * KV) * hd), generator=gen,
+                      device=dev).to(bf)
+    views = (qkv[..., :H * hd].view(B, S, H, hd),
+             qkv[..., H * hd:(H + KV) * hd].view(B, S, KV, hd),
+             qkv[..., (H + KV) * hd:].view(B, S, KV, hd))
+    # and views 2 bytes off a 16-byte boundary, which TMA cannot read
+    raw = torch.randn((B, S, H + 2 * KV, hd + 1), generator=gen,
+                      device=dev).to(bf)[..., 1:]
+    odd = (raw[:, :, :H], raw[:, :, H:H + KV], raw[:, :, H + KV:])
+    # and B=1 views whose batch stride (never stepped) is no multiple of 8:
+    # read in place, as _tma.ready and tc::tma_ready both rule
+    one = tuple(_batch_stride_999(t) for t in views)
+    for tag, (q, k, v), copies in (("fused views", views, 0),
+                                   ("unaligned views", odd, 3),
+                                   ("size-1 batch stride 999 views", one, 0)):
+        c0 = _tma.copies
+        out = fak.flash_attention(q, k, v, window=128)
+        torch.cuda.synchronize()
+        e = compare("flash_attention", out,
+                    flash_attention_ref(q, k, v, window=128), "bfloat16")
+        if _tma.copies - c0 != copies:
+            raise AssertionError(f"flash {tag}: {_tma.copies - c0} copies, "
+                                 f"want {copies}")
+        log(f"flash_attention fa_forward_tc {tag} of one projection "
+            f"B={q.shape[0]} S={S} H={H} KV={KV} hd={hd} window=128 "
+            f"bfloat16: max_abs_err {e:.3g}, {copies} operands copied for "
+            f"TMA")
+    # the C launcher's plan against kernel.plan at every shape here
+    shapes += [(1, 256, 25, 5), (1, 200, 25, 5), (1, 1536, 25, 5),
+               (2, 2048, 25, 5), (2, 500, 16, 16), (1, 384, 32, 16),
+               (1, 384, 48, 8), (1, 384, 64, 8), (1, 384, 40, 10)]
+    got = (ctypes.c_int * 4)()
+    for B, S, H, KV in shapes:
+        _build.check(fn(B, S, H, KV, got), "fa_plan_tc")
+        want = fak.plan(B, S, H, KV, sms)
+        if list(got) != [int(want["split"]), want["heads"],
+                         want["positions"], want["blocks"]]:
+            raise AssertionError(f"plan B={B} S={S} H={H} KV={KV}: C "
+                                 f"{list(got)}, kernel.plan {want}")
+    log(f"flash plan: fa_plan_tc equals kernel.plan at {len(shapes)} shapes "
+        f"({sms} SMs)")
+
+
 def check_flash(dev, gen):
     """Both kernels against the plain version at every case; times at
     hymba's shapes.  Returns the JSON record of each dtype's kernel, from
     the S=256, window 1024 case."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fak
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -590,6 +724,8 @@ def check_flash(dev, gen):
     hymba = [(1, S, 25, 5, 64, True, w, 0.0)
              for S in (256, 200) for w in (0, 1024)]
     hymba.append((1, 1536, 25, 5, 64, True, 1024, 0.0))
+    # the training shape, B=2 x S=2048, at the window and the global one
+    hymba += [(2, 2048, 25, 5, 64, True, w, 0.0) for w in (1024, 0)]
     err, rec = {}, {}
     for tag, cases in (("hymba", hymba), ("jax-case", FA_CASES),
                        ("edge", FA_EDGE)):
@@ -612,20 +748,7 @@ def check_flash(dev, gen):
                     ms = time_ms(lambda: fak.flash_attention(q, k, v, **kw))
                     plain = time_ms(lambda: flash_attention_ref(q, k, v, **kw),
                                     reps=5)
-                    G = H // KV
-                    qh = q.transpose(1, 2)
-                    kh = k.repeat_interleave(G, dim=2).transpose(1, 2)
-                    vh = v.repeat_interleave(G, dim=2).transpose(1, 2)
-                    if window > 0 and window < S:
-                        i = torch.arange(S, device=dev)
-                        mask = (i[None, :] <= i[:, None]) & \
-                            (i[:, None] - i[None, :] < window)
-                        sdpa = lambda: F.scaled_dot_product_attention(  # noqa
-                            qh, kh, vh, attn_mask=mask)
-                    else:
-                        sdpa = lambda: F.scaled_dot_product_attention(  # noqa
-                            qh, kh, vh, is_causal=True)
-                    lib = time_ms(sdpa)
+                    lib = time_ms(_sdpa(q, k, v, S, window))
                     eager = eager_ms(lambda: fak.flash_attention(q, k, v,
                                                                  **kw))
                     ops = 4 * B * H * hd * _attn_pairs(S, causal, window)
@@ -638,6 +761,7 @@ def check_flash(dev, gen):
                         rec[dn] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                        bound_ms=b_ms, bound_by=b_by)
                 log(line)
+    check_flash_tiles(dev, gen)
     for dn in rec:
         rec[dn]["max_abs_err"] = err[dn]
     return rec
@@ -702,7 +826,8 @@ def _ssd_witness(args, y, hT, chunk):
 def check_ssd(dev, gen):
     """Both kernels against the chunked plain version (and, at the JAX
     cases, the recurrence) at every case; bf16 times at hymba's and
-    mamba2-130m's shapes; one call's output fed straight into the next.
+    mamba2-130m's shapes; one call's output fed straight into the next;
+    B=1 operands with a batch stride of 999, read in place.
     Returns the JSON record of each dtype's kernel, from hymba's S=256
     case."""
     import torch
@@ -721,12 +846,15 @@ def check_ssd(dev, gen):
 
     # hymba-1.5b prefill: 50 heads, P=64, N=16, chunk 128
     hymba = [(1, S, 50, 64, 16, 128) for S in (256, 200, 2048)]
+    hymba.append((2, 2048, 50, 64, 16, 128))     # the training shape
     err, rec = {}, {}
     for tag, cases in (("hymba", hymba), ("mamba2-130m", [MAMBA2_SSD]),
-                       ("jax-case", SSD_CASES), ("edge", SSD_EDGE)):
+                       ("jax-case", SSD_CASES), ("edge", SSD_EDGE),
+                       ("tile-edge", SSD_TILE_EDGE)):
         for case in cases:
             B, S, H, P, N, chunk = case
-            for dtype in (torch.bfloat16, torch.float32):
+            for dtype in ((torch.bfloat16,) if tag == "tile-edge" else
+                          (torch.bfloat16, torch.float32)):
                 dn = str(dtype).split(".")[1]
                 args = mk(B, S, H, P, N, dtype)
                 y, hT = ssdk.ssd(*args, chunk=chunk)
@@ -742,7 +870,7 @@ def check_ssd(dev, gen):
                     e2 = max(compare("ssd", y, y_seq, dn),
                              compare("ssd", hT, h_seq, dn))
                     line += f", vs recurrence {e2:.3g}"
-                elif tag != "edge":
+                elif tag not in ("edge", "tile-edge"):
                     err[dn] = max(err.get(dn, 0.0), e)
                 if tag == "mamba2-130m" and dtype == torch.float32:
                     line += _ssd_witness(args, y, hT, chunk)
@@ -764,8 +892,8 @@ def check_ssd(dev, gen):
                 log(line)
 
     # one call's output straight into the next, with nothing between: the
-    # second call's kernels start early and must still see the first's y
-    B, S, H, P, N, chunk = hymba[-1]
+    # second call's kernel starts early and must still see the first's y
+    B, S, H, P, N, chunk = hymba[2]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         xs, dt, A, B_, C_ = mk(B, S, H, P, N, dtype)
@@ -779,9 +907,79 @@ def check_ssd(dev, gen):
                 compare("ssd", h2, h2_ref, dn))
         log(f"ssd {ssdk.entry(dtype)[1]} chained ssd(ssd(x).y) B={B} S={S} "
             f"H={H} P={P} N={N} chunk={chunk} {dn}: max_abs_err {e:.3g}")
+
+    # B=1 operands whose batch stride (never stepped) is no multiple of 8:
+    # TMA reads them in place, as _tma.ready and tc::tma_ready both rule
+    from repro_torch.kernels import _tma
+    B, S, H, P, N, chunk = hymba[0]
+    xs, dt, A, B_, C_ = mk(B, S, H, P, N, torch.bfloat16)
+    xs, B_, C_ = (_batch_stride_999(t) for t in (xs, B_, C_))
+    c0 = _tma.copies
+    y, hT = ssdk.ssd(xs, dt, A, B_, C_, chunk=chunk)
+    torch.cuda.synchronize()
+    y_ref, h_ref = ssd_chunked(xs, dt, A, B_, C_, chunk)
+    e = max(compare("ssd", y, y_ref, "bfloat16"),
+            compare("ssd", hT, h_ref, "bfloat16"))
+    if _tma.copies != c0:
+        raise AssertionError(f"ssd size-1 batch stride views: "
+                             f"{_tma.copies - c0} copies, want 0")
+    log(f"ssd ssd_forward_tc size-1 batch stride 999 views B={B} S={S} "
+        f"H={H} P={P} N={N} chunk={chunk} bfloat16: max_abs_err {e:.3g}, 0 "
+        f"operands copied for TMA")
     for dn in rec:
         rec[dn]["max_abs_err"] = err[dn]
     return rec
+
+
+def kernel_times():
+    """The bf16 kernels' device times (``time_ms``) at TIMED_FA and
+    TIMED_SSD, through the ``repro_torch`` that ``sys.path`` finds first,
+    each case's output held against its plain version.  Returns {case:
+    ms}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd import kernel as ssdk
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf, out = torch.bfloat16, {}
+    for B, S, H, KV, hd, causal, window, cap in TIMED_FA:
+        q, k, v = _qkv(gen, dev, B, S, H, KV, hd, bf)
+        kw = dict(causal=causal, window=window, cap=cap)
+        compare("flash_attention", fak.flash_attention(q, k, v, **kw),
+                flash_attention_ref(q, k, v, **kw), "bfloat16")
+        out[f"flash {(B, S, H, KV, hd, causal, window, cap)}"] = time_ms(
+            lambda: fak.flash_attention(q, k, v, **kw))
+    for B, S, H, P, N, chunk in TIMED_SSD:
+        args = (torch.randn((B, S, H, P), generator=gen, device=dev).to(bf),
+                F.softplus(torch.randn((B, S, H), generator=gen, device=dev)
+                           - 1.0),
+                -torch.exp(torch.randn((H,), generator=gen, device=dev)
+                           * 0.3),
+                torch.randn((B, S, N), generator=gen, device=dev).to(bf),
+                torch.randn((B, S, N), generator=gen, device=dev).to(bf))
+        y, hT = ssdk.ssd(*args, chunk=chunk)
+        y_ref, h_ref = ssd_chunked(*args, chunk)
+        compare("ssd", y, y_ref, "bfloat16")
+        compare("ssd", hT, h_ref, "bfloat16")
+        out[f"ssd {(B, S, H, P, N, chunk)}"] = time_ms(
+            lambda: ssdk.ssd(*args, chunk=chunk))
+    return out
+
+
+def compare_times(roots):
+    """``kernel_times`` of the ``repro_torch`` under each checkout in
+    ``roots``, in that order, each in a child process of its own (which
+    builds that checkout's kernels under its own ``build/``): to compare
+    two commits on one card, unpack the other into a git-ignored directory
+    and pass it, this checkout, this checkout, it.  Prints one ``TIMES
+    <root> {case: ms}`` line a run."""
+    for root in roots:
+        subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--times-of", str(Path(root).resolve())], check=True)
 
 
 # ---------------------------------------------------------------------------
@@ -995,8 +1193,7 @@ def serve_hymba(dev):
     return launches, model
 
 
-OWN_KERNELS = ("fa_tc_fwd", "fa_fwd", "ssd_tc_state", "ssd_tc_pass",
-               "ssd_tc_scan", "ssd_fwd")
+OWN_KERNELS = ("fa_tc_fwd", "fa_fwd", "ssd_tc_fwd", "ssd_fwd")
 
 
 def _kernel_group(name):
@@ -3218,6 +3415,14 @@ TRAIN_SMOKE = ("hymba-1.5b", "stablelm-1.6b")
 TRAIN_SMOKE_LR = 1e-2
 TRAIN_STEP_TOL = 1e-4     # card against CPU, f32, of the largest magnitude
 TRAIN_MAIN = dict(arch="hymba-1.5b", steps=6, batch=2, seq=2048, lr=3e-4)
+# (f) suspect S1 (ROADMAP queue 3): launch.train's run of hymba-smoke, bf16
+# (4 steps of B=2 x S=64, lr 1e-3), from parameters drawn on the CPU from
+# one seed, on the card and on the CPU.  The curves may part by one bf16
+# ulp of the loss (2^-8, its relative spacing) a step: each side rounds
+# its bf16 operands (activations, logits, the parameters after each
+# update) in its own order, and those differences compound once a step.
+S1_RUN = dict(arch="hymba-1.5b", steps=4, batch=2, seq=64, lr=1e-3, seed=0)
+S1_ULP = 2.0 ** -8
 
 
 def _grads_of(fn, inputs, weights):
@@ -3259,8 +3464,10 @@ def check_kernel_grads(dev, gen):
     of each gradient's max."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fak
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd import kernel as ssdk
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_chunked
 
@@ -3277,11 +3484,23 @@ def check_kernel_grads(dev, gen):
                 q, k, v, **kw), qkv, w)
             eo = compare("flash_attention", out[0], out_ref[0], dn)
             e = _held_grads("flash_attention", got, ref, dn, "qkv")
-            rec[f"flash {dn} B={B} S={S} w={window}"] = dict(out=eo, grad=e)
-            log(f"grad flash_attention {dn} B={B} S={S} H={H} KV={KV} "
-                f"hd={hd} window={window}: output max_abs_err {eo:.3g}; "
-                f"dq, dk, dv within {e:.3g} of their max (tol "
-                f"{TOL['flash_attention'][dn]})")
+            r = rec[f"flash {dn} B={B} S={S} w={window}"] = dict(out=eo,
+                                                                 grad=e)
+            line = (f"grad flash_attention {dn} B={B} S={S} H={H} KV={KV} "
+                    f"hd={hd} window={window}: output max_abs_err {eo:.3g}; "
+                    f"dq, dk, dv within {e:.3g} of their max (tol "
+                    f"{TOL['flash_attention'][dn]})")
+            if B == 2 and dtype == torch.bfloat16:   # the training shape
+                q, k, v = qkv
+                r["ms"] = time_ms(lambda: fak.flash_attention(q, k, v, **kw))
+                r["sdpa_ms"] = time_ms(_sdpa(q, k, v, S, window))
+                r["bound_ms"], r["bound_by"] = bound(   # q, k, v, out
+                    nbytes(q, k, v) + nbytes(q),
+                    4 * B * H * hd * _attn_pairs(S, causal, window), dn)
+                line += (f"; kernel forward {r['ms']:.4f} ms, sdpa "
+                         f"{r['sdpa_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+                         f"ms ({r['bound_by']})")
+            log(line)
         for B, S, H, P, N, chunk in TRAIN_SSD_CASES:
             ins = (torch.randn((B, S, H, P), generator=gen,
                                device=dev).to(dtype),
@@ -3301,10 +3520,19 @@ def check_kernel_grads(dev, gen):
             eo = max(compare("ssd", o, r, dn) for o, r in zip(out, out_ref))
             e = _held_grads("ssd", got, ref, dn,
                             ("xs", "dt", "A", "B", "C"))
-            rec[f"ssd {dn} B={B} S={S}"] = dict(out=eo, grad=e)
-            log(f"grad ssd {dn} B={B} S={S} H={H} P={P} N={N} chunk="
-                f"{chunk}: y and state max_abs_err {eo:.3g}; dxs, ddt, dA, "
-                f"dB, dC within {e:.3g} of their max (tol {TOL['ssd'][dn]})")
+            r = rec[f"ssd {dn} B={B} S={S}"] = dict(out=eo, grad=e)
+            line = (f"grad ssd {dn} B={B} S={S} H={H} P={P} N={N} chunk="
+                    f"{chunk}: y and state max_abs_err {eo:.3g}; dxs, ddt, "
+                    f"dA, dB, dC within {e:.3g} of their max (tol "
+                    f"{TOL['ssd'][dn]})")
+            if B == 2 and dtype == torch.bfloat16:   # the training shape
+                r["ms"] = time_ms(lambda: ssdk.ssd(*ins, chunk=chunk))
+                r["bound_ms"], r["bound_by"] = bound(
+                    nbytes(*ins, *out), _ssd_ops(B, S, H, P, N, chunk), dn)
+                line += (f"; kernel forward {r['ms']:.4f} ms, bound "
+                         f"{r['bound_ms']:.4f} ms ({r['bound_by']}), no "
+                         f"single PyTorch call")
+            log(line)
     return rec
 
 
@@ -3707,6 +3935,66 @@ class LaunchTrain:
                     done=out.strip().splitlines()[-1])
 
 
+def check_s1(dev):
+    """(f) S1: the same bf16 training run on the card and on the CPU, from
+    parameters drawn on the CPU and copied to the card.  Both loss curves,
+    their largest gap, and a failure if step k's gap passes
+    (k + 1) S1_ULP |loss_cpu(k)|."""
+    import copy
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.step import TrainHParams
+
+    r = S1_RUN
+    cfg = get_smoke_config(r["arch"])
+    cpu = tfm.init_model(cfg, r["seed"], device="cpu", dtype=torch.bfloat16,
+                         requires_grad=True)
+    card = copy.deepcopy(cpu).to(dev)
+    curves, launches = {}, {}
+    out_dir = ROOT / "build" / "train" / "s1"
+    for side, model in (("cpu", cpu), ("card", card)):
+        shutil.rmtree(out_dir, ignore_errors=True)
+        before = _StepLaunches._now()
+        _, _, hist = train(
+            cfg, DataPipeline(cfg, batch=r["batch"], seq=r["seq"]),
+            LoopConfig(steps=r["steps"], ckpt_every=10 ** 9,
+                       ckpt_dir=str(out_dir / side), log_every=10 ** 9),
+            TrainHParams(lr=r["lr"]), resume=False, params=model,
+            device=model.device)
+        curves[side] = [h["loss"] for h in hist]
+        launches[side] = {k: v - before[k]
+                          for k, v in _StepLaunches._now().items()}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    gaps = [abs(a - b) for a, b in zip(curves["card"], curves["cpu"])]
+    tols = [(k + 1) * S1_ULP * abs(c) for k, c in enumerate(curves["cpu"])]
+    rec = dict(cpu=curves["cpu"], card=curves["card"], gaps=gaps, tols=tols,
+               max_gap=max(gaps), within=all(g <= t for g, t in
+                                             zip(gaps, tols)),
+               launches=launches["card"])
+    # the card's run goes through both kernels (forward and block-remat
+    # recompute, a layer a step), the CPU's through neither
+    want = {k: 2 * cfg.n_layers * r["steps"] for k in launches["card"]}
+    if launches["card"] != want or any(launches["cpu"].values()):
+        raise AssertionError(f"S1: launches {launches}, want {want} on the "
+                             f"card and none on the CPU")
+    log(f"S1: hymba-1.5b-smoke bf16, {r['steps']} steps of B={r['batch']} x "
+        f"S={r['seq']}, lr {r['lr']}, parameters drawn on the CPU (seed "
+        f"{r['seed']}): losses on the CPU {curves['cpu']}, on the card "
+        f"{curves['card']}; gaps {[f'{g:.4g}' for g in gaps]}, largest "
+        f"{max(gaps):.4g}, tolerance (k + 1) 2^-8 |loss| = "
+        f"{[f'{t:.4g}' for t in tols]}; kernel launches on the card "
+        f"{launches['card']}")
+    if not rec["within"]:
+        raise AssertionError(f"S1: the card's loss curve parts from the "
+                             f"CPU's beyond bf16 rounding: {rec}")
+    return rec
+
+
 def check_train(dev, launch=None):
     """Phase 10: training on the card.  ``launch`` (a list) takes the
     running (e) instead of waiting for it: the whole script finishes it
@@ -3734,6 +4022,7 @@ def check_train(dev, launch=None):
     parts["b"] = time.perf_counter() - t
     rec["f32_launches"] = f32
     rec["c"] = part("c", check_resume, dev)
+    rec["f"] = part("f", check_s1, dev)
     rec["d"] = part("d", train_hymba, dev, gen)
     if launch is None:
         rec["e"] = part("e", lambda: LaunchTrain().finish())
@@ -4512,6 +4801,14 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--times-of"] and len(sys.argv) == 3:
+        # compare_times' child: that checkout's repro_torch, not this one's
+        sys.path.insert(0, str(Path(sys.argv[2]) / "src"))
+        import repro_torch
+        log(_card())
+        log(f"times of {repro_torch.__file__}")
+        print(f"TIMES {sys.argv[2]} {json.dumps(kernel_times())}", flush=True)
+        return 0
     try:
         import repro_torch  # noqa: F401
     except ImportError:
@@ -4520,6 +4817,15 @@ def main():
         return 1
 
     dev = torch.device("cuda", 0)
+    if sys.argv[1:] == ["--kernels"]:
+        # phases 1 and 2 alone: builds, every kernel case, the bf16
+        # kernels' tiling edges, their plan, and the kernels' record
+        setup()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        print(json.dumps({"kernels": {"flash_attention": check_flash(dev, gen),
+                                      "ssd": check_ssd(dev, gen)}}),
+              flush=True)
+        return 0
     if sys.argv[1:] == ["--engine"]:
         # phase 5 alone, after the card line
         log(_card())
@@ -4554,6 +4860,11 @@ def main():
         # phase 10 alone, after phase 1 (the builds, TF32 off)
         setup()
         print(json.dumps({"train": check_train(dev)}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--times"]:
+        # the bf16 kernels' times at TIMED_FA and TIMED_SSD, of this
+        # checkout or of each checkout named
+        compare_times(sys.argv[2:] or [str(ROOT)])
         return 0
     if sys.argv[1:] == ["--dryrun"]:
         # phase 12 alone, after the card line

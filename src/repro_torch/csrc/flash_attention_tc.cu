@@ -14,336 +14,509 @@
 // query head against (2*H + 2*KV)*S*hd*2 bytes; at hymba's 25 query and 5
 // KV heads that is about 0.42*S FLOP per byte, so the bound is bytes below
 // S ~ 700 and the tensor cores' 989 TFLOP/s above (with a window w the
-// pairs per row stop growing at w, and so does the ratio).
+// pairs per row stop growing at w, and so does the ratio).  Past the
+// bound, the softmax's exp: one MUFU ex2 per score, 16 an SM a cycle,
+// costs about as long as the two products of a 64-key tile.
 //
-// Design (FlashAttention-2 on mma.sync):
-//  - Q.K^T and P.V run on the tensor cores as mma.sync.m16n8k16 with bf16
-//    operands and f32 accumulators.  wgmma is not used yet.  Each warp
-//    owns 16 query rows; its Q fragments stay in registers for the whole
-//    key loop, S and the output accumulator live in registers, and P is
-//    rounded to bf16 only as the A operand of P.V, straight from the S
-//    accumulators (no trip through shared memory).  The softmax is done
-//    once per score by the lane that holds it: the row max and sum need
-//    two shuffles per row per 64-key tile.
-//  - K/V tiles of 64 keys in a ring of 3 in shared memory, filled by
-//    16-byte cp.async: tiles j+1 and j+2 stream in while tile j is
-//    computed, and one barrier a tile both publishes a tile and frees the
-//    oldest buffer.  Rows are padded by 16 bytes so ldmatrix reads are
-//    conflict-free.
-//  - Tiles fully outside the causal or window range are skipped; the mask
-//    is evaluated only on tiles that cut the diagonal, the window edge or
-//    the ragged end.
-//  - Blocks of 64 query rows (4 warps) that share each K/V tile; query
-//    tiles are issued last-first, so the longest causal rows start
-//    earliest.  When these blocks are fewer than the SMs (short prompts:
-//    at hymba's S=256 the grid is 25 heads x 4 tiles = 100 blocks), a
-//    block gets a second group of 4 warps that takes every other key tile
-//    with its own K/V ring, and the two partial softmax states are merged
-//    at the end: the longest causal row walks half as many tiles in a row.
-//    Blocks of 32 rows (200 blocks) were measured slower, since each K/V
-//    tile then feeds half the rows.
-//  - Shared memory: (64 + 6 * 64 * groups) * (hd + 8) * 2 bytes: 64,512 at
-//    hd=64 with one key group, 119,808 with two.
-//  - Any head dim that is a multiple of 16 fits: the products step through
-//    it 16 (k) or 8 (n) at a time, and a row of hd + 8 bf16 is a whole
-//    number of 16-byte pieces, whose 8 rows an ldmatrix reads fall in 8
-//    different bank groups when (hd + 8) / 8 is odd (hd 80: 11).  The
-//    launcher instantiates 16, 32, 64, 80 (hubert-xlarge) and 128.
-//  - Launched with programmatic dependent launch, so its blocks are placed
-//    while the kernel before it drains; they wait for it before reading.
-// Registers (ptxas -v, CUDA 12.8, sm_90a), one key group / two: 189 / 181
-// at hd=128, 145 / 134 at hd=64, 101 / 111 at hd=32, 94 / 94 at hd=16, no
-// spills; phase 1 of chip_smoke.py prints them for each build.
+// Design (warp-specialised, wgmma fed by TMA; FlashAttention-3's shape):
+//  - A block is 3 warpgroups.  The third is the producer: after
+//    setmaxnreg.dec to 40 registers, one of its threads issues every TMA
+//    load (cp.async.bulk.tensor) of the block: the Q tile once, then K/V
+//    tiles of 64 keys into a ring of 3 stages, each stage guarded by a
+//    "full" mbarrier (K and V apart) and an "empty" one that each
+//    consumer warp arrives on.  The other two warpgroups are consumers
+//    (setmaxnreg.inc to 232), 64 query rows each.
+//  - Q.K^T is wgmma.mma_async m64n64k16 with Q and K both K-major in
+//    shared memory; P.V is m64n{hd}k16 with P in registers (rounded to
+//    bf16 straight from the S accumulators) and V MN-major in shared
+//    memory (the transposed-B mode of 16-bit types).  S and the output
+//    accumulator stay in registers; the softmax is done by the thread that
+//    holds a score, two shuffles a row a tile.
+//  - Software pipeline: Q.K^T of tile i+1 and P.V of tile i are issued
+//    together; the softmax of tile i+1 runs while P.V of tile i does, and
+//    O is rescaled once that P.V is done.  The two consumer warpgroups
+//    take turns to issue (named barriers 3 and 4), so one's softmax
+//    overlaps the other's products.
+//  - The softcap is cap (1 - 2 / (2^(2x log2 e) + 1)) on the special
+//    function unit (f32 tanhf per score took half the kernel's time), the
+//    branch on it taken once a tile; the mask only on tiles that cut the
+//    diagonal, the window edge or the ragged end (TMA fills keys past Sk
+//    with zeros; they get -inf).  Tiles fully outside the causal or window
+//    range are never loaded.  Position tiles are issued last-first.
+//  - Layout: the head dim is cut into parts of W columns, each a TMA box
+//    and a tile of rows of 2W bytes in TMA's 2W-byte swizzle, which the
+//    wgmma descriptors name: W = 64 (128-byte swizzle) at hd 64 and 128,
+//    32 (64-byte) at hd 32, 16 (32-byte) at hd 16 and 80.  hd 80 = 5 x 16
+//    in the k steps and one n80 product, but its 160-byte rows fit no
+//    swizzle, so it takes five 32-byte parts.
+//  - GQA: a block serves Gp query heads of one KV group (Gp the largest
+//    divisor of H/KV up to 16: hymba 5, gemma2 2) from the same K/V stage.
+//    Its 128 rows are (position, head) pairs, npos = 128/Gp positions of
+//    Gp heads, so the Q box (W, Gp, npos) and the output box are single
+//    TMA copies of a [B,S,H,hd] tensor (rows past npos*Gp are unused).
+//  - The output is normalised, rounded to bf16 into the Q tile (the same
+//    swizzle) and written by one TMA store, which clips the ragged end.
+//  - When the blocks are fewer than the SMs (hymba's S=256 prompt: 55
+//    blocks of 25 positions), the block takes 64 rows and the two
+//    consumer warpgroups split the key tiles, even and odd, each with its
+//    own online softmax; the partial states are merged through shared
+//    memory at the end (fa_plan below, kernel.py's `plan`).
+//  - Launched with programmatic dependent launch: the blocks are placed
+//    while the kernel before drains and wait for it before any load.
+//  - Shared memory: 128*hd*2 bytes of Q and 3 x 2 x 64*hd*2 of K/V: 64 KB
+//    at hd 64, 128 KB at hd 128; one block an SM (384 threads at 168
+//    registers fill the register file).
+//  - mma.sync, ldmatrix and cp.async are not used.
+// Registers (ptxas -v, CUDA 12.9, sm_90a): 168 a thread at launch for
+// every head dim and both modes, no spills (the consumers run at 232
+// after setmaxnreg); phase 1 of chip_smoke.py prints them for each build.
 #include <math.h>
 
-#include "tc.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using tc::bf16;
 
-constexpr int kWarps = 4;         // warps of a key group, 16 query rows each
-constexpr int kBQ = 16 * kWarps;  // query rows per block
-constexpr int kBK = 64;           // keys per tile
-constexpr int kStages = 3;        // K/V tiles in flight or in use
+constexpr int kBK = 64;        // keys per K/V tile
+constexpr int kStages = 3;     // K/V tiles in the ring
+constexpr int kRows = 128;     // query rows of a block (64 when split)
+constexpr int kThreads = 384;  // two consumer warpgroups, one producer
+constexpr int kMaxHeads = 16;  // query heads a block may serve
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-struct FaArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* o;
-  int B, Sq, Sk, H, KV;
-  long long qsb, qss, qsh;  // strides in elements; head dim is contiguous
-  long long ksb, kss, ksh;
-  long long vsb, vss, vsh;
-  long long osb, oss, osh;
-  int causal, window;
-  float scale, cap;
-  bool vec;  // q, k, v rows are 16-byte aligned
+// The head dim in NP parts of W columns: one TMA box and one swizzled
+// tile of RB = 2W-byte rows each
+template <int HD>
+struct Part {
+  static constexpr int W = HD % 64 == 0 ? 64 : (HD == 32 ? 32 : 16);
+  static constexpr int NP = HD / W;
+  static constexpr int RB = 2 * W;
 };
 
-// KG key groups of 4 warps share the block's 64 query rows; group g takes
-// the key tiles g, g + KG, ... and the groups' partial softmax states are
-// merged at the end.
-template <int HD, int KG>
-__global__ void __launch_bounds__(KG * kWarps * 32) fa_tc_fwd(FaArgs a) {
-  constexpr int LD = HD + tc::kPad, T = kWarps * 32;
-  tc::launch_dependents();  // the next kernel's blocks may get ready
-  tc::grid_wait();          // the kernel before has written q, k, v
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // key group and thread within it (constants when there is one group)
-  const int g = KG == 1 ? 0 : threadIdx.x / T;
-  const int gt = KG == 1 ? threadIdx.x : threadIdx.x % T;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][LD]
-  // the group's K and V rings, [kStages][kBK][LD] each
-  bf16* Ks = Qs + kBQ * LD + g * 2 * kStages * kBK * LD;
-  bf16* Vs = Ks + kStages * kBK * LD;
+// Byte offsets in the (1024-aligned) dynamic shared memory
+template <int HD>
+struct Smem {
+  static constexpr int TILE = kBK * HD * 2;       // one K or V stage
+  static constexpr int K = kRows * HD * 2;        // after the Q tile
+  static constexpr int V = K + kStages * TILE;
+  static constexpr int BAR = V + kStages * TILE;  // 1 + 3 * kStages mbarriers
+  static constexpr int BYTES = BAR + (1 + 3 * kStages) * 8 + 1024;
+};
 
-  const int warp = gt >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const int kvh = h / (a.H / a.KV);
-  const bf16* Q = a.q + b * a.qsb + h * a.qsh + q0 * a.qss;
-  const bf16* K = a.k + b * a.ksb + kvh * a.ksh;
-  const bf16* V = a.v + b * a.vsb + kvh * a.vsh;
+struct FaParams {
+  CUtensorMap q, k, v, o;  // [B,S,heads,hd] as (hd, heads|S, S|heads, B)
+  int Sq, Sk, KV, G, Gp, npos, nsub;
+  int causal, window;
+  float scale, cap;
+};
 
-  // key range any row of this block can see, in whole tiles
-  const int q_last = min(a.Sq, q0 + kBQ) - 1;
-  const int kv_hi = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
-  int kv_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-  kv_lo = kv_lo / kBK * kBK;
-  const int nt = kv_hi > kv_lo ? (kv_hi - kv_lo + kBK - 1) / kBK : 0;
-  const int ng = nt > g ? (nt - g + KG - 1) / KG : 0;  // this group's tiles
+// tanh(x) = 1 - 2 / (2^(2x log2 e) + 1) on the special-function unit; an
+// absolute error of ~1e-7, as f32 tanhf, at any x (2^.. -> inf gives 1)
+__device__ __forceinline__ float fast_tanh_l2(float x2) {  // x2 = 2x log2 e
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(tc::exp2(x2) + 1.f));
+  return 1.f - 2.f * r;
+}
 
-  auto load_kv = [&](int i) {  // the group's i-th tile
-    const int k0 = kv_lo + (g + i * KG) * kBK, buf = i % kStages;
-    tc::load_tile<T>(Ks + buf * kBK * LD, LD, K + k0 * a.kss, a.kss, kBK,
-                     a.Sk - k0, HD, HD, a.vec, gt);
-    tc::load_tile<T>(Vs + buf * kBK * LD, LD, V + k0 * a.vss, a.vss, kBK,
-                     a.Sk - k0, HD, HD, a.vec, gt);
-  };
-  tc::load_tile<KG * T>(Qs, LD, Q, a.qss, kBQ, a.Sq - q0, HD, HD, a.vec,
-                        threadIdx.x);
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {  // one copy group per tile
-    if (i < ng) load_kv(i);
-    tc::cp_async_commit();
-  }
-  tc::cp_async_wait<kStages - 2>();  // Q, which every group reads
-  __syncthreads();
+// The online softmax of one warp's 16 rows (two a thread: gid, gid + 8)
+// over a 64-key tile of S in the wgmma accumulator layout
+struct Softmax {
+  const FaParams& p;
+  int pos0, pos1, tig;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
 
-  uint32_t qf[HD / 16][4];
-  float o[HD / 8][4];
+  // S -> scaled (log2 domain), softcapped, masked; the running max and
+  // denominator; P as bf16 fragments of P.V; O's rescale factors c0, c1
+  __device__ __forceinline__ void tile(float (&sc)[32], int k0, int q0,
+                                       int q_end, uint32_t (&pf)[4][4],
+                                       float& c0, float& c1) {
+    // exp(x) = 2^(x log2 e): scores are kept multiplied by log2 e
+    if (p.cap > 0.f) {  // cap tanh(s scale / cap)
+      const float k2 = 2.f * p.scale / p.cap * kLog2e, cap2 = p.cap * kLog2e;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;  // rows gid and gid + 8
-  // exp(x) = 2^(x log2 e): scores are kept multiplied by log2 e
-  const float scale2 = a.scale * kLog2e, cap2 = a.cap * kLog2e;
-  const int r0 = q0 + warp * 16 + gid, r1 = r0 + 8;
-
+      for (int e = 0; e < 32; ++e) sc[e] = fast_tanh_l2(sc[e] * k2) * cap2;
+    } else {
+      const float scale2 = p.scale * kLog2e;
 #pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks)
-    tc::ldsm_x4(qf[ks], tc::a_rowmajor(Qs, LD, warp * 16, ks * 16, lane));
-  for (int i = 0; i < ng; ++i) {
-    tc::cp_async_wait<kStages - 2>();  // tile i has landed
-    if (KG == 1)  // the group, all done with tile i - 1
-      __syncthreads();
-    else
-      tc::bar_sync(1 + g, T);
-    if (i + kStages - 1 < ng) load_kv(i + kStages - 1);  // into i - 1's
-    tc::cp_async_commit();
-    const bf16* Kb = Ks + (i % kStages) * kBK * LD;
-    const bf16* Vb = Vs + (i % kStages) * kBK * LD;
-    const int k0 = kv_lo + (g + i * KG) * kBK;
-
-    // S = Q K^T: 16 rows x 64 keys per warp
-    float s[kBK / 8][4];
+      for (int e = 0; e < 32; ++e) sc[e] *= scale2;
+    }
+    // the mask, on tiles that cut the diagonal, the window or the end
+    if (k0 + kBK > p.Sk || (p.causal && k0 + kBK - 1 > q0) ||
+        (p.window > 0 && q_end - k0 >= p.window)) {
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-      uint32_t kb[kBK / 16][4];
-#pragma unroll
-      for (int np = 0; np < kBK / 16; ++np)
-        tc::ldsm_x4(kb[np], tc::b_nmajor(Kb, LD, ks * 16, np * 16, lane));
-#pragma unroll
-      for (int np = 0; np < kBK / 16; ++np) {
-        tc::mma(s[2 * np], qf[ks], kb[np][0], kb[np][1]);
-        tc::mma(s[2 * np + 1], qf[ks], kb[np][2], kb[np][3]);
+      for (int e = 0; e < 32; ++e) {
+        const int kp = k0 + (e >> 2) * 8 + 2 * tig + (e & 1);
+        const int qp = (e & 2) ? pos1 : pos0;
+        bool ok = true;
+        if (p.causal) ok = ok && kp <= qp;
+        if (p.window > 0) ok = ok && (qp - kp < p.window);
+        sc[e] = kp >= p.Sk ? -INFINITY : (ok ? sc[e] : kNeg);
       }
     }
-
-    // scale (to the log2 domain), softcap, mask; row max
-    const bool edge = k0 + kBK > a.Sk || (a.causal && k0 + kBK - 1 > q0) ||
-                      (a.window > 0 && q0 + kBQ - 1 - k0 >= a.window);
     float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float sc = s[j][e] * scale2;
-        if (a.cap > 0.f) sc = tanhf(s[j][e] * a.scale / a.cap) * cap2;
-        if (edge) {
-          const int kp = k0 + j * 8 + 2 * tig + (e & 1);
-          const int qp = e < 2 ? r0 : r1;
-          bool ok = true;
-          if (a.causal) ok = ok && kp <= qp;
-          if (a.window > 0) ok = ok && (qp - kp < a.window);
-          sc = ok ? sc : kNeg;
-          if (kp >= a.Sk) sc = -INFINITY;
-        }
-        s[j][e] = sc;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
-    const float c0 = tc::exp2(m0 - mx0), c1 = tc::exp2(m1 - mx1);
+    c0 = tc::exp2(m0 - mx0);
+    c1 = tc::exp2(m1 - mx1);
     m0 = mx0;
     m1 = mx1;
-    l0 *= c0;
-    l1 *= c1;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      o[n][0] *= c0;
-      o[n][1] *= c0;
-      o[n][2] *= c1;
-      o[n][3] *= c1;
-    }
     // P = exp(S - m) in f32 for the denominator, bf16 for P.V
+    float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      s[j][0] = tc::exp2(s[j][0] - m0);
-      s[j][1] = tc::exp2(s[j][1] - m0);
-      s[j][2] = tc::exp2(s[j][2] - m1);
-      s[j][3] = tc::exp2(s[j][3] - m1);
-      l0 += s[j][0] + s[j][1];
-      l1 += s[j][2] + s[j][3];
+    for (int j = 0; j < 8; ++j) {
+      sc[4 * j] = tc::exp2(sc[4 * j] - m0);
+      sc[4 * j + 1] = tc::exp2(sc[4 * j + 1] - m0);
+      sc[4 * j + 2] = tc::exp2(sc[4 * j + 2] - m1);
+      sc[4 * j + 3] = tc::exp2(sc[4 * j + 3] - m1);
+      s0 += sc[4 * j] + sc[4 * j + 1];
+      s1 += sc[4 * j + 2] + sc[4 * j + 3];
     }
+    l0 = l0 * c0 + s0;
+    l1 = l1 * c1 + s1;
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = tc::pack(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = tc::pack(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = tc::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = tc::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      uint32_t vb[HD / 16][4];
+    for (int kk = 0; kk < 4; ++kk) {
+      pf[kk][0] = tc::pack(sc[8 * kk], sc[8 * kk + 1]);
+      pf[kk][1] = tc::pack(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pf[kk][2] = tc::pack(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pf[kk][3] = tc::pack(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+  }
+};
+
+// ------------------------------------------------------------- kernel
+template <int HD, bool SPLIT>
+__global__ void __launch_bounds__(kThreads, 1)
+    fa_tc_fwd(const __grid_constant__ FaParams p) {
+  using Pt = Part<HD>;
+  using L = Smem<HD>;
+  constexpr int W = Pt::W, RB = Pt::RB, NP = Pt::NP;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Qs = sm;  // [NP][kRows][RB]; the output tile at the end
+  unsigned char* Ks = sm + L::K;  // [kStages][NP][kBK][RB]
+  unsigned char* Vs = sm + L::V;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* empty = v_full + kStages;
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * p.npos;
+  const int sub = blockIdx.y % p.nsub;
+  const int kvh = blockIdx.y / p.nsub % p.KV;
+  const int b = blockIdx.y / (p.nsub * p.KV);
+  const int h0 = kvh * p.G + sub * p.Gp;  // the block's first query head
+  // key range any row of this block can see, in whole tiles
+  const int q_end = q0 + p.npos - 1;  // last position of the block
+  const int kv_hi = p.causal ? min(p.Sk, min(p.Sq, q_end + 1)) : p.Sk;
+  int kv_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  kv_lo = kv_lo / kBK * kBK;
+  const int nt = kv_hi > kv_lo ? (kv_hi - kv_lo + kBK - 1) / kBK : 0;
+
+  if (tid == 0) {
+    tc::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      tc::mbar_init(&k_full[s], 1);
+      tc::mbar_init(&v_full[s], 1);
+      // every warp that reads a stage arrives once it is done with it
+      tc::mbar_init(&empty[s], SPLIT ? 4 : 8);
+    }
+    tc::mbar_init_fence();
+  }
+  __syncthreads();
+  tc::launch_dependents();  // the next kernel's blocks may get ready
+  tc::grid_wait();          // the kernel before has written q, k, v
+
+  if (wg == 2) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      tc::mbar_expect_tx(q_full, NP * p.Gp * p.npos * RB);
+      for (int j = 0; j < NP; ++j)
+        tc::tma_load4(Qs + j * kRows * RB, &p.q, q_full, j * W, h0, q0, b);
+      for (int i = 0; i < nt; ++i) {
+        const int s = i % kStages, r = i / kStages;
+        if (r > 0) tc::mbar_wait(&empty[s], (r - 1) & 1);
+        const int k0 = kv_lo + i * kBK;
+        tc::mbar_expect_tx(&k_full[s], L::TILE);
+        for (int j = 0; j < NP; ++j)
+          tc::tma_load4(Ks + s * L::TILE + j * kBK * RB, &p.k, &k_full[s],
+                        j * W, k0, kvh, b);
+        tc::mbar_expect_tx(&v_full[s], L::TILE);
+        for (int j = 0; j < NP; ++j)
+          tc::tma_load4(Vs + s * L::TILE + j * kBK * RB, &p.v, &v_full[s],
+                        j * W, k0, kvh, b);
+      }
+    }
+  } else {
+    // -------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = tid % 128 / 32, lane = tid & 31;
+    const int gid = lane >> 2, tig = lane & 3;
+    // the block rows of accumulator registers 0-1 and 2-3, their positions
+    const int r0 = (SPLIT ? 0 : wg * 64) + warp * 16 + gid, r1 = r0 + 8;
+    const int pos0 = q0 + r0 / p.Gp, pos1 = q0 + r1 / p.Gp;
+    const uint32_t qa = tc::smem_u32(Qs) + (SPLIT ? 0 : wg * 64 * RB);
+    const uint32_t ka = tc::smem_u32(Ks), va = tc::smem_u32(Vs);
+
+    float o[HD / 2];
 #pragma unroll
-      for (int np = 0; np < HD / 16; ++np)
-        tc::ldsm_x4_t(vb[np], tc::b_kmajor(Vb, LD, kk * 16, np * 16, lane));
+    for (int n = 0; n < HD / 2; ++n) o[n] = 0.f;
+    Softmax sm_{p, pos0, pos1, tig};
+    float sc[32];         // S of the tile in flight, then its P in f32
+    uint32_t pa[4][4];    // P of the tile whose P.V runs, bf16 fragments
+    uint32_t pn[4][4];    // P of the next tile, made while that P.V runs
+
+    // S = Q K^T of tile i (landed) into sc, issued and committed
+    auto issue_qk = [&](int i) {
+      const int s = i % kStages;
 #pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
-        tc::mma(o[2 * np], pa, vb[np][0], vb[np][1]);
-        tc::mma(o[2 * np + 1], pa, vb[np][2], vb[np][3]);
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const uint32_t off = (ks * 16 % W) * 2, part = ks * 16 / W;
+        tc::wgmma_ss_n64(
+            sc, tc::desc_k(qa + part * kRows * RB + off, RB),
+            tc::desc_k(ka + s * L::TILE + part * kBK * RB + off, RB), ks > 0);
+      }
+      tc::wg_commit();
+    };
+
+    // Software pipeline (FlashAttention-3): while the tensor cores run
+    // P.V of tile i, this warpgroup does the softmax of tile i + step,
+    // whose Q.K^T was issued with it.  O is rescaled once P.V is done.
+    const int step = SPLIT ? 2 : 1;
+    int i = SPLIT ? wg : 0;  // split: warpgroup wg takes tiles wg, wg + 2..
+    tc::mbar_wait(q_full, 0);
+    if (i < nt) {
+      tc::mbar_wait(&k_full[i % kStages], (i / kStages) & 1);
+      tc::wg_fence();
+      issue_qk(i);
+      tc::wg_wait<0>();
+      tc::fence_regs<32>(sc);
+      float c0, c1;
+      sm_.tile(sc, kv_lo + i * kBK, q0, q_end, pa, c0, c1);
+    }
+    // The two warpgroups take turns to issue their products (named
+    // barriers 3 and 4, FlashAttention-3's ping-pong): one's softmax runs
+    // while the other's products hold the tensor cores.  Warpgroup 0 goes
+    // first; the one arrival left over at the end is harmless.
+    if (wg == 1) tc::bar_arrive(3, 256);
+    for (; i < nt; i += step) {
+      const int s = i % kStages, n = i + step;
+      const bool more = n < nt;
+      tc::mbar_wait(&v_full[s], (i / kStages) & 1);
+      if (more) tc::mbar_wait(&k_full[n % kStages], (n / kStages) & 1);
+      tc::bar_sync(3 + wg, 256);  // this warpgroup's turn
+      tc::fence_regs<HD / 2>(o);
+      tc::wg_fence();
+      if (more) issue_qk(n);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // O += P V, V's parts kBK*RB apart
+        tc::wgmma_rs<HD>(o, pa[kk],
+                         tc::desc_mn(va + s * L::TILE + kk * 16 * RB,
+                                     kBK * RB, RB));
+      tc::wg_commit();
+      tc::bar_arrive(4 - wg, 256);  // the other's turn
+      float c0 = 1.f, c1 = 1.f;
+      if (more) {
+        tc::wg_wait<1>();  // S of tile n; P.V of tile i still runs
+        tc::fence_regs<32>(sc);
+        sm_.tile(sc, kv_lo + n * kBK, q0, q_end, pn, c0, c1);
+      }
+      tc::wg_wait<0>();
+      tc::fence_regs<HD / 2>(o);
+      if (lane == 0) tc::mbar_arrive(&empty[s]);  // this warp is done
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        o[4 * j] *= c0;
+        o[4 * j + 1] *= c0;
+        o[4 * j + 2] *= c1;
+        o[4 * j + 3] *= c1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pa[kk][e] = pn[kk][e];
+    }
+    float m0 = sm_.m0, m1 = sm_.m1, l0 = sm_.l0, l1 = sm_.l1;
+
+    if (SPLIT) {  // warpgroup 1 hands its state to 0 through the K/V ring
+      float* x = reinterpret_cast<float*>(Ks);
+      const int t = tid % 128;
+      tc::bar_sync(1, 256);  // both are done with the ring
+      if (wg == 1) {
+        x[0 * 128 + t] = m0;
+        x[1 * 128 + t] = m1;
+        x[2 * 128 + t] = l0;
+        x[3 * 128 + t] = l1;
+#pragma unroll
+        for (int n = 0; n < HD / 2; ++n) x[(4 + n) * 128 + t] = o[n];
+      }
+      tc::bar_sync(1, 256);
+      if (wg == 0) {
+        const float pm0 = x[t], pm1 = x[128 + t];
+        const float mm0 = fmaxf(m0, pm0), mm1 = fmaxf(m1, pm1);
+        const float a0 = tc::exp2(m0 - mm0), b0 = tc::exp2(pm0 - mm0);
+        const float a1 = tc::exp2(m1 - mm1), b1 = tc::exp2(pm1 - mm1);
+        l0 = l0 * a0 + x[2 * 128 + t] * b0;
+        l1 = l1 * a1 + x[3 * 128 + t] * b1;
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          o[4 * n] = o[4 * n] * a0 + x[(4 + 4 * n) * 128 + t] * b0;
+          o[4 * n + 1] = o[4 * n + 1] * a0 + x[(5 + 4 * n) * 128 + t] * b0;
+          o[4 * n + 2] = o[4 * n + 2] * a1 + x[(6 + 4 * n) * 128 + t] * b1;
+          o[4 * n + 3] = o[4 * n + 3] * a1 + x[(7 + 4 * n) * 128 + t] * b1;
+        }
+      }
+    }
+
+    if (!SPLIT || wg == 0) {
+      // each row's denominator is spread over the 4 lanes of its quad
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
+      // bf16 rows into this warpgroup's rows of the Q tile, as TMA reads
+      // them back for the store
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        const int col = n * 8 + 2 * tig;
+        unsigned char* part = Qs + (col / W) * kRows * RB;
+        const uint32_t byte = (col % W) * 2;
+        *reinterpret_cast<__nv_bfloat162*>(part + tc::swz(r0, byte, RB)) =
+            __floats2bfloat162_rn(o[4 * n] * i0, o[4 * n + 1] * i0);
+        *reinterpret_cast<__nv_bfloat162*>(part + tc::swz(r1, byte, RB)) =
+            __floats2bfloat162_rn(o[4 * n + 2] * i1, o[4 * n + 3] * i1);
+      }
+      tc::fence_async_shared();
+      tc::bar_sync(2, SPLIT ? 128 : 256);
+      if (tid == 0) {
+        for (int j = 0; j < NP; ++j)
+          tc::tma_store4(&p.o, Qs + j * kRows * RB, j * W, h0, q0, b);
+        tc::tma_commit();
+        tc::tma_wait_all();
       }
     }
   }
-  tc::cp_async_wait<0>();  // no copy outlives the block
-
-  if (KG > 1) {  // group 1 hands its state to group 0 through its K ring
-    float* x = reinterpret_cast<float*>(Ks);
-    if (g == 1) {
-      tc::bar_sync(2, T);  // the group's last tile is read by every warp
-      x[0 * T + gt] = m0;
-      x[1 * T + gt] = m1;
-      x[2 * T + gt] = l0;
-      x[3 * T + gt] = l1;
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) x[(4 + 4 * n + e) * T + gt] = o[n][e];
-    }
-    __syncthreads();
-    if (g == 1) return;
-    x = reinterpret_cast<float*>(Qs + kBQ * LD + 2 * kStages * kBK * LD);
-    const float pm0 = x[0 * T + gt], pm1 = x[1 * T + gt];
-    const float mm0 = fmaxf(m0, pm0), mm1 = fmaxf(m1, pm1);
-    const float a0 = tc::exp2(m0 - mm0), b0 = tc::exp2(pm0 - mm0);
-    const float a1 = tc::exp2(m1 - mm1), b1 = tc::exp2(pm1 - mm1);
-    l0 = l0 * a0 + x[2 * T + gt] * b0;
-    l1 = l1 * a1 + x[3 * T + gt] * b1;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      o[n][0] = o[n][0] * a0 + x[(4 + 4 * n) * T + gt] * b0;
-      o[n][1] = o[n][1] * a0 + x[(5 + 4 * n) * T + gt] * b0;
-      o[n][2] = o[n][2] * a1 + x[(6 + 4 * n) * T + gt] * b1;
-      o[n][3] = o[n][3] * a1 + x[(7 + 4 * n) * T + gt] * b1;
-    }
-  }
-
-  // each row's denominator is spread over the 4 lanes of its quad
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
-  bf16* O = a.o + b * a.osb + h * a.osh;
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int col = n * 8 + 2 * tig;
-    if (r0 < a.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(O + r0 * a.oss + col) =
-          __floats2bfloat162_rn(o[n][0] * i0, o[n][1] * i0);
-    if (r1 < a.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(O + r1 * a.oss + col) =
-          __floats2bfloat162_rn(o[n][2] * i1, o[n][3] * i1);
-  }
 }
 
-template <int HD, int KG>
-cudaError_t launch_groups(const FaArgs& a, cudaStream_t st) {
-  constexpr int smem =
-      (kBQ + KG * 2 * kStages * kBK) * (HD + tc::kPad) * sizeof(bf16);
+// ------------------------------------------------------------- launch
+struct Plan {
+  int split, Gp, npos, tiles, nsub;
+};
+
+// Query heads a block serves, positions a block and whether the two
+// consumer warpgroups split the key tiles; kernel.py's `plan` is the same
+// rule
+Plan fa_plan(int B, int Sq, int H, int KV, int sms) {
+  const int G = H / KV;
+  int Gp = 1;
+  for (int d = 1; d <= kMaxHeads && d <= G; ++d)
+    if (G % d == 0) Gp = d;
+  const int npos_full = kRows / Gp;
+  const long long blocks =
+      (long long)B * KV * (G / Gp) * ((Sq + npos_full - 1) / npos_full);
+  const int split = blocks < sms;
+  const int npos = (split ? kRows / 2 : kRows) / Gp;
+  return {split, Gp, npos, (Sq + npos - 1) / npos, G / Gp};
+}
+
+struct FaArgs {
+  const void *q, *k, *v;
+  void* o;
+  int B, Sq, Sk, H, KV;
+  long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh;
+  int causal, window;
+  float scale, cap;
+};
+
+template <int HD, bool SPLIT>
+int launch(const FaArgs& a, const Plan& pl, cudaStream_t st) {
+  using Pt = Part<HD>;
   static const cudaError_t attr = cudaFuncSetAttribute(  // once a process
-      fa_tc_fwd<HD, KG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fa_tc_fwd<HD, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Smem<HD>::BYTES);
   if (attr != cudaSuccess) return attr;
-  // programmatic dependent launch: the blocks are placed while the kernel
-  // before drains, and wait for it in grid_wait()
-  cudaLaunchAttribute pdl;
-  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((a.Sq + kBQ - 1) / kBQ, a.B * a.H);
-  cfg.blockDim = dim3(KG * kWarps * 32);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = &pdl;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, fa_tc_fwd<HD, KG>, a);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  FaParams p;
+  const cuuint32_t qbox[4] = {(cuuint32_t)Pt::W, (cuuint32_t)pl.Gp,
+                              (cuuint32_t)pl.npos, 1};
+  const cuuint32_t kbox[4] = {(cuuint32_t)Pt::W, kBK, 1, 1};
+  // q and o as (hd, H, Sq, B), k and v as (hd, Sk, KV, B)
+  const cuuint64_t qdim[4] = {HD, (cuuint64_t)a.H, (cuuint64_t)a.Sq,
+                              (cuuint64_t)a.B};
+  const cuuint64_t kdim[4] = {HD, (cuuint64_t)a.Sk, (cuuint64_t)a.KV,
+                              (cuuint64_t)a.B};
+  const cuuint64_t qs[3] = {tc::stride_bytes(a.qsh, a.H),
+                            tc::stride_bytes(a.qss, a.Sq),
+                            tc::stride_bytes(a.qsb, a.B)};
+  const cuuint64_t os[3] = {tc::stride_bytes(a.osh, a.H),
+                            tc::stride_bytes(a.oss, a.Sq),
+                            tc::stride_bytes(a.osb, a.B)};
+  const cuuint64_t ks[3] = {tc::stride_bytes(a.kss, a.Sk),
+                            tc::stride_bytes(a.ksh, a.KV),
+                            tc::stride_bytes(a.ksb, a.B)};
+  const cuuint64_t vs[3] = {tc::stride_bytes(a.vss, a.Sk),
+                            tc::stride_bytes(a.vsh, a.KV),
+                            tc::stride_bytes(a.vsb, a.B)};
+  int rc;
+  if ((rc = tc::encode_map(&p.q, 4, a.q, qdim, qs, qbox, Pt::RB)) ||
+      (rc = tc::encode_map(&p.o, 4, a.o, qdim, os, qbox, Pt::RB)) ||
+      (rc = tc::encode_map(&p.k, 4, a.k, kdim, ks, kbox, Pt::RB)) ||
+      (rc = tc::encode_map(&p.v, 4, a.v, kdim, vs, kbox, Pt::RB)))
+    return tc::kMapError + rc;
+  p.Sq = a.Sq;
+  p.Sk = a.Sk;
+  p.KV = a.KV;
+  p.G = a.H / a.KV;
+  p.Gp = pl.Gp;
+  p.npos = pl.npos;
+  p.nsub = pl.nsub;
+  p.causal = a.causal;
+  p.window = a.window;
+  p.scale = a.scale;
+  p.cap = a.cap;
+  return tc::launch_pdl(fa_tc_fwd<HD, SPLIT>,
+                        dim3(pl.tiles, a.B * a.KV * pl.nsub), dim3(kThreads),
+                        Smem<HD>::BYTES, st, p);
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      n = 132;
-  }
-  return n;
-}
-
-// Two key groups when the row blocks alone cannot fill the SMs (short
-// prompts: the longest causal row then walks half as many tiles in a row)
 template <int HD>
-cudaError_t launch_hd(const FaArgs& a, cudaStream_t st) {
-  const long long blocks = (long long)a.B * a.H * ((a.Sq + kBQ - 1) / kBQ);
-  if (blocks < sm_count()) return launch_groups<HD, 2>(a, st);
-  return launch_groups<HD, 1>(a, st);
+int launch_hd(const FaArgs& a, cudaStream_t st) {
+  const Plan pl = fa_plan(a.B, a.Sq, a.H, a.KV, tc::sm_count());
+  return pl.split ? launch<HD, true>(a, pl, st) : launch<HD, false>(a, pl, st);
 }
 
 }  // namespace
 
+// The plan fa_forward_tc launches with on this card: split, heads a
+// block, positions a block, blocks (chip_smoke.py holds kernel.py's
+// `plan` to it)
+extern "C" int fa_plan_tc(int B, int Sq, int H, int KV, int* out) {
+  if (B < 1 || Sq < 1 || KV < 1 || H % KV) return cudaErrorInvalidValue;
+  const Plan pl = fa_plan(B, Sq, H, KV, tc::sm_count());
+  out[0] = pl.split;
+  out[1] = pl.Gp;
+  out[2] = pl.npos;
+  out[3] = pl.tiles * B * KV * pl.nsub;
+  return 0;
+}
+
+// q [B,Sq,H,hd], k and v [B,Sk,KV,hd] with a contiguous head dim, o
+// [B,Sq,H,hd]; every base 16-byte aligned and the stride of every dim of
+// more than one element a multiple of 8 elements (TMA, tc::tma_ready),
+// which the launcher sees to
 extern "C" int fa_forward_tc(const void* q, const void* k, const void* v,
                              void* o, int B, int Sq, int Sk, int H, int KV,
                              int hd, long long qsb, long long qss,
@@ -352,14 +525,17 @@ extern "C" int fa_forward_tc(const void* q, const void* k, const void* v,
                              long long vsh, long long osb, long long oss,
                              long long osh, int causal, int window,
                              float scale, float cap, void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV) return cudaErrorInvalidValue;
-  const bool vec = tc::aligned16(q, qsb, qss, qsh) &&
-                   tc::aligned16(k, ksb, kss, ksh) &&
-                   tc::aligned16(v, vsb, vss, vsh);
-  FaArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-           static_cast<const bf16*>(v), static_cast<bf16*>(o),
-           B, Sq, Sk, H, KV, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
-           osb, oss, osh, causal, window, scale, cap, vec};
+  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV)
+    return cudaErrorInvalidValue;
+  const long long nq[3] = {B, Sq, H}, nk[3] = {B, Sk, KV};
+  if (!tc::tma_ready(q, {qsb, qss, qsh}, nq) ||
+      !tc::tma_ready(k, {ksb, kss, ksh}, nk) ||
+      !tc::tma_ready(v, {vsb, vss, vsh}, nk) ||
+      !tc::tma_ready(o, {osb, oss, osh}, nq))
+    return cudaErrorMisalignedAddress;
+  const FaArgs a{q,   k,   v,   o,   B,   Sq,  Sk,  H,      KV,     qsb,
+                 qss, qsh, ksb, kss, ksh, vsb, vss, vsh,    osb,    oss,
+                 osh, causal, window, scale, cap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: return launch_hd<16>(a, st);

@@ -1,4 +1,4 @@
-// Mamba-2 SSD chunk scan on Hopper's tensor cores, bf16 (sm_90a).
+// Mamba-2 SSD chunk scan on Hopper, bf16 (sm_90a), in one launch.
 //
 // Replaces the Pallas TPU kernel `_ssd_kernel` (src/repro/kernels/ssd/
 // kernel.py:23, launched by `ssd` at :73) for bf16 x, B and C; ssd.cu
@@ -15,449 +15,706 @@
 // reads x and writes y (4*H*P bytes) and reads B, C and dt; its products
 // are about H*(l*(N+P) + 4*P*N) FLOPs a step, so at hymba's widths (H=50,
 // P=64, N=16, l=128) it does ~56 FLOP per byte, under the ~295 at which
-// the tensor cores would bind.  Both grow linearly in S, so the bound
-// stays bytes at any S; only a chunk above ~600 would turn it.
+// the tensor cores would bind.  What holds this design back is neither:
+// a chunk's step is a chain of dependent phases (the cumsum, the state,
+// the score tiles, y's store), latency-bound on the SM's 8 compute warps.
 //
-// Design: the GPU form of the chunked scan (arXiv:2405.21060 section 6),
-// three kernels on the caller's stream:
-//  1. ssd_tc_state, one block per (chunk, head, batch, 32 columns of the
-//     state): the chunk's cumsum, and its state contribution
-//     x^T (B o w), w_j = dt_j exp(cum_end - cum_j), in f32 into `hs`;
-//     cum_end into `cend`.
-//  2. ssd_tc_pass, one thread per state entry: walks the chunks in order,
-//     h_c = h_{c-1} exp(cum_end_c) + contrib_c, writes the state entering
-//     each chunk as two bf16 terms (below) and the final state in f32.
-//     nc <= 2 at hymba's served lengths.
-//  3. ssd_tc_scan, one block per (64-row tile of a chunk, head, batch):
-//     C.B^T, decay, dt and the causal mask on 64x64 score tiles made in
-//     registers, scores.x, then exp(cum_i) C.h_prev^T, and the bf16 store.
-//     The [l,l] matrix never exists in memory.
-// All three launch with programmatic dependent launch (Hopper): the scan's
-// blocks start beside the first two kernels, do the intra-chunk part, and
-// wait (griddepcontrol.wait) only before they read the entering state.
-// ssd_tc_state waits for the kernel before it to finish before it lets the
-// other two launch, so the scan's early reads of x, dt, B and C never race
-// the kernel that wrote them.
-// Every product is mma.sync.m16n8k16 with f32 accumulators; x, B and C go
-// in as they are (bf16).  An f32 value that feeds a product (the decayed
-// scores, B o w, the state) is split into two bf16 terms, hi = bf16(v) and
-// lo = bf16(v - hi), each multiplied by the same bf16 partner: with one
-// bf16 term the error at N=128 reached the whole 5e-2 tolerance.  Tiles
-// of 64 rows of x, B and C, and the split states, are staged by 16-byte
-// cp.async, double-buffered, with rows padded by 16 bytes for
-// conflict-free ldmatrix.  N and P are padded to 16 with zeros inside the
-// kernels.  Row tiles of a chunk are issued last-first, the longest first.
-// Grid at hymba's S=256 (H=50, N=16, chunk 128): 100 blocks for (1), 200
-// for (2), 200 for (3); at mamba2-130m's N=128, (1) has 4 column slices.
-// Shared memory at P=64, N=16, chunk 128: 34,816 bytes for (1) and 34,816
-// for (3); at N=128, chunk 1024: 41,984 and 113,664.
-// Registers (ptxas -v, CUDA 12.8, sm_90a): 64 for ssd_tc_state, 48 for
-// ssd_tc_pass, 161 for ssd_tc_scan, no spills; phase 1 of chip_smoke.py
-// prints them for each build.
+// Design: row p of the state h [P, N] depends only on column p of x, so
+// one block per (PS columns of P, head, batch) runs every chunk of its
+// slice and carries the [PS, N] state from chunk to chunk on chip: one
+// launch a call, x read from device memory once, y written once, no state
+// in device memory between chunks.  PS = 16 where N > 32, else 32, or 64
+// where blocks of 32 would outnumber the SMs at N <= 16 (ps_for): 100
+// blocks at hymba's B=1 and at B=2.
+//  - Compute warpgroups take the chunks in turn: three at N <= 16 with 32
+//    columns of P (hymba's B=1: 100 blocks, so each block needs the most
+//    overlap), else two (ng_for).  A chunk's state contribution
+//    x^T (B o w) comes first; the state entering it arrives from the
+//    warpgroup that ran the chunk before, through one shared-memory slot
+//    and two mbarriers used in turn; the state after it goes on the same
+//    way.  Only that hand-over is serial: the cumsum and the score tiles
+//    of neighbouring chunks run at once.
+//  - A producer warpgroup (setmaxnreg.dec to 40, 24 beside three compute
+//    warpgroups; one thread a compute warpgroup) loads by TMA, in the
+//    order a compute warpgroup consumes them, into that warpgroup's two
+//    rings guarded by mbarriers: C tiles of 64 rows (2 stages) and (B, x)
+//    tile pairs of 64 rows (4 stages; 3 at N = 128, so that two groups fit
+//    the shared memory): each chunk's (B, x) tiles for its state, then
+//    each row tile's C and the (B, x) tiles at and before it (re-read from
+//    L2).
+//  - Each compute warpgroup (setmaxnreg.inc to 232, or 160 of three) runs
+//    a chunk 64 rows at a time, 16 a warp.  C.B^T is wgmma m64n64k16 from
+//    the C and B tiles; its decay exp(cum_i - cum_j), dt_j and the causal
+//    mask are applied on the accumulators (factored about each warp's
+//    first row r into exp(cum_i - cum_r) exp(cum_r - cum_j) dt_j, both
+//    <= 1 for keys before r; the warp's own 16 rows take the exp whole);
+//    then (L o C.B^T).x is wgmma m64n{PS}k16 with the scores from
+//    registers and x MN-major from its tile.
+//  - Kept on mma.sync.m16n8k16 (16-row tiles, under wgmma's 64 rows):
+//    exp(cum_i) C_i.h_prev, whose B fragments come from the state in
+//    registers, and the state's x^T (B o w), whose M is the block's PS
+//    state rows.  Where N >= 64 each of the warpgroup's four warps takes
+//    a quarter of its N columns over every key; at smaller N (too few
+//    8-column tiles to share) its 16-key steps go to the four warps in
+//    turn, and the parts are summed in order through shared memory.
+//  - Each warp stores its 16 rows of y by TMA from shared memory, clipped
+//    at S; rows that end inside a chunk that is not the last are stored
+//    by the threads, so that no store reaches the next chunk's rows.
+//  - Precision: x, B and C go in as they are (bf16).  An f32 value that
+//    feeds a product (the decayed scores, B o w, the state) is split into
+//    hi = bf16(v) and lo = bf16(v - hi), each multiplied by the same bf16
+//    partner (at N=128 one bf16 term reached the whole 5e-2 tolerance).
+//    The chunk's cumsum is taken in f64 and rounded once; y is rounded to
+//    bf16 once.
+//  - Shared tiles are in TMA's swizzle (rows of 32, 64 or 128 bytes; N is
+//    padded to 16, 32, 64 or 128, one or two 64-column parts), as the
+//    wgmma descriptors and the ldmatrix addresses read them.
+//  - Launched with programmatic dependent launch: blocks are placed while
+//    the kernel before drains and wait for it before any load.
+// Registers (ptxas -v, CUDA 12.9, sm_90a): 168 a thread at launch (128
+// with three compute warpgroups, 12 bytes of spill stores); no spills at
+// N padded to 16, 32 and 64 otherwise, 20 bytes at 128; phase 1 of
+// chip_smoke.py prints them for each build.
 #include <math.h>
 
-#include "tc.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using tc::bf16;
 
-constexpr int kT = 128;  // threads of the chunk kernels: 4 warps
-constexpr int kR = 64;   // chunk rows per tile
-constexpr int kMaxP = 64;
-constexpr int kMaxN = 128;
-constexpr int kNS = 32;  // state columns per block of ssd_tc_state
-constexpr int kPassThreads = 256;
+constexpr int kR = 64;              // rows of a tile (C, B, x, y)
+constexpr int kGT = 128;            // threads of a warpgroup
+constexpr int kCStages = 2;
+constexpr int kMaxP = 64, kMaxN = 128, kMaxChunk = 1024;
+constexpr int kPer = kMaxChunk / kGT;  // dt values a thread prefetches
 
-struct SsdArgs {
-  const bf16* x;    // [B,S,H,P]
-  const float* dt;  // [B,S,H]
-  const float* A;   // [H]
-  const bf16* Bm;   // [B,S,N]
-  const bf16* Cm;   // [B,S,N]
-  bf16* y;          // [B,S,H,P] contiguous
-  float* state;     // [B,H,P,N] contiguous
-  float* hs;    // [B,H,nc,P,N]: chunk contributions
-  bf16* h_hi;   // [B,H,nc,P,N]: state entering each chunk, bf16 hi term
-  bf16* h_lo;   // [B,H,nc,P,N]: and its lo term
-  float* cend;  // [B,H,nc]: cumsum of dt*A at each chunk's last row
-  int S, H, P, N, chunk, nc, Pp, Np;  // Pp, Np: P and N rounded up to 16
-  long long xsb, xss, xsh;  // strides in elements; last dims contiguous
-  long long dsb, dss, dsh;
-  long long bsb, bss;
-  long long csb, css;
-  bool vec;    // x, B, C rows are 16-byte aligned
-  bool vec_h;  // so are the rows of h_hi and h_lo
+// N padded to NP = 16, 32, 64 or 128: parts of W columns, rows of RB bytes.
+// PS columns of P a block and NG chunk groups, compute warpgroups that
+// take chunks in turn (ps_for and ng_for below).  NB stages of (B, x)
+// tiles: 3 at NP = 128, where 4 would not leave two groups room.  COLS:
+// the state's x^T (B o w) splits its N columns over a group's four warps
+// (NP >= 64), else its 16-key steps, whose four partial states are summed
+// through shared memory (HC).
+template <int NP, int PS_, int NG_>
+struct Geo {
+  static constexpr int W = NP < 64 ? NP : 64;
+  static constexpr int RB = 2 * W;
+  static constexpr int PS = PS_;
+  static constexpr int MT = PS / 16;      // 16-row tiles of the state
+  static constexpr int PN = PS / 8;       // 8-column tiles of y
+  static constexpr int HV = MT * NP / 8;  // float4s of state a thread holds
+  static constexpr int NG = NG_;
+  static constexpr int NB = NP == 128 ? 3 : 4;
+  static constexpr bool COLS = NP >= 64;
+  static constexpr int NW = COLS ? NP / 32 : NP / 8;  // state columns of 8
+                                                      // a warp computes
+  static constexpr int XRB = 2 * PS;      // bytes of an x or y row
+  static constexpr int T = kR * NP * 2;   // a B or C tile
+  static constexpr int X = kR * XRB;      // an x tile
+  static constexpr int YW = 16 * XRB;     // a warp's y rows
+  // byte offsets of one group's part of the 1024-aligned shared memory
+  static constexpr int C = 0;
+  static constexpr int B = C + kCStages * T;
+  static constexpr int XS = B + NB * T;
+  static constexpr int Y = XS + NB * X;            // 2 a warp
+  static constexpr int DT = Y + 4 * 2 * YW;        // dt, cum: kMaxChunk each
+  static constexpr int HC = DT + 2 * kMaxChunk * 4;   // 4 warps' states
+  static constexpr int WT = HC + (COLS ? 0 : 4 * HV * 32 * 16);  // 4 doubles
+  static constexpr int BAR = WT + 4 * 8;               // 2 (C + B) stages
+  static constexpr int GROUP = (BAR + 2 * (kCStages + NB) * 8 + 1023) /
+                               1024 * 1024;
+  static constexpr int SLOT = NG * GROUP;  // the state handed over
+  static constexpr int HBAR = SLOT + HV * 32 * 16;
+  static constexpr int BYTES = HBAR + 16 + 1024;
 };
 
-// dt of the chunk's rows [0, n) into dts and the inclusive cumsum of dt*A
-// into cum.  The sum is taken in f64 and rounded once: |cum| reaches the
+struct SsdParams {
+  CUtensorMap x, bm, cm, y;  // x, y as (P, H, S, B); B, C as (N, S, B)
+  const float* dt;           // [B,S,H]
+  const float* A;            // [H]
+  float* state;              // [B,H,P,N] contiguous
+  bf16* yp;                  // [B,S,H,Py] contiguous
+  int S, H, P, N, Py, chunk;
+  long long dsb, dss, dsh;
+};
+
+// shared address of an ldmatrix lane's row piece in a B or C tile
+template <int NP>
+__device__ __forceinline__ const unsigned char* at_bc(const unsigned char* t,
+                                                      tc::RC rc) {
+  constexpr int W = NP < 64 ? NP : 64;
+  return t + (rc.c / W) * (kR * 2 * W) + tc::swz(rc.r, (rc.c % W) * 2, 2 * W);
+}
+
+// a register of two bf16 B values (rows k, k + 1) times w_k, w_{k+1},
+// split into hi and lo bf16 terms
+__device__ __forceinline__ void scale_split(uint32_t v, float w0, float w1,
+                                            uint32_t& hi, uint32_t& lo) {
+  const float2 f =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  tc::pack_split(f.x * w0, f.y * w1, hi, lo);
+}
+
+// The chunk's dt (from `dnext`, prefetched) into dts and the inclusive
+// cumsum of dt*A into cum, by one warpgroup (thread t of kGT, barrier
+// `bar`).  The sum is taken in f64 and rounded once: |cum| reaches the
 // hundreds within a chunk, where the order of an f32 scan moves
-// exp(cum_i - cum_j) by ~1e-4.  Each thread sums a run of ceil(chunk/kT)
-// rows, then the runs are scanned across the block; the order depends on
-// the chunk only, so every kernel that scans a prefix gets the same cum.
-__device__ void chunk_cumsum(const SsdArgs& a, const float* DT, float Ah,
-                             int c0, int n, float* dts, float* cum) {
-  __shared__ double warp_total[kT / 32];
-  for (int t = threadIdx.x; t < n; t += kT) dts[t] = DT[(c0 + t) * a.dss];
-  __syncthreads();
-  const int per = (a.chunk + kT - 1) / kT, t0 = threadIdx.x * per;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// exp(cum_i - cum_j) by ~1e-4.  Each thread sums a run of ceil(chunk/kGT)
+// rows, then the runs are scanned across the warps.
+__device__ __forceinline__ void chunk_cumsum(const float (&dnext)[kPer],
+                                             float Ah, int n, int chunk,
+                                             float* dts, float* cum,
+                                             double* wtot, int t, int bar) {
+  const int lane = t & 31, warp = t >> 5;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k)
+    if (t + k * kGT < n) dts[t + k * kGT] = dnext[k];
+  tc::bar_sync(bar, kGT);
+  const int per = (chunk + kGT - 1) / kGT, t0 = t * per;
   double own = 0.0;
-  for (int i = 0; i < per && t0 + i < n; ++i) own += (double)(dts[t0 + i] * Ah);
+  for (int i = 0; i < per && t0 + i < n; ++i)
+    own += (double)(dts[t0 + i] * Ah);
   double v = own;  // inclusive scan of the runs within the warp
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     const double u = __shfl_up_sync(0xffffffffu, v, off);
     if (lane >= off) v += u;
   }
-  if (lane == 31) warp_total[warp] = v;
-  __syncthreads();
+  if (lane == 31) wtot[warp] = v;
+  tc::bar_sync(bar, kGT);
   double run = __shfl_up_sync(0xffffffffu, v, 1);  // the runs before
   if (lane == 0) run = 0.0;
-  for (int w = 0; w < warp; ++w) run += warp_total[w];
+  for (int w = 0; w < warp; ++w) run += wtot[w];
   for (int i = 0; i < per && t0 + i < n; ++i) {
     run += (double)(dts[t0 + i] * Ah);
     cum[t0 + i] = (float)run;
   }
+  tc::bar_sync(bar, kGT);
+}
+
+// setmaxnreg counts: the producer warpgroup gives registers up to the
+// NG compute warpgroups (each count a multiple of 8; all of them fit the
+// 65,536 registers of the SM)
+template <int NG>
+struct Regs {
+  static constexpr int WARPGROUPS = NG + 1;
+  static constexpr int PRODUCER = NG == 3 ? 24 : 40;
+  static constexpr int COMPUTE = NG == 3 ? 160 : 232;
+};
+
+template <int NP, int PS_, int NG_>
+__global__ void __launch_bounds__(Regs<NG_>::WARPGROUPS* kGT, 1)
+    ssd_tc_fwd(const __grid_constant__ SsdParams p) {
+  using G = Geo<NP, PS_, NG_>;
+  constexpr int NT = NP / 8;  // 8-column tiles of the state
+  constexpr int PS = G::PS, MT = G::MT, PN = G::PN, HV = G::HV;
+  constexpr int NG = G::NG, XRB = G::XRB;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  float4* slot = reinterpret_cast<float4*>(sm + G::SLOT);  // [HV][32]
+  // hand-over j (the state entering chunk j + 1) completes h_full[j & 1]
+  uint64_t* h_full = reinterpret_cast<uint64_t*>(sm + G::HBAR);
+
+  const int tid = threadIdx.x, g = tid / kGT;
+  const int p0 = blockIdx.x * PS, h = blockIdx.y, b = blockIdx.z;
+  const int nc = (p.S + p.chunk - 1) / p.chunk;
+  // group q's part of shared memory and its two rings
+  auto part = [&](int q) { return sm + q * G::GROUP; };
+  auto bars = [&](int q) {
+    return reinterpret_cast<uint64_t*>(part(q) + G::BAR);
+  };
+
+  if (tid == 0) {
+    for (int q = 0; q < NG; ++q) {
+      uint64_t* bq = bars(q);  // c_full, c_empty, b_full, b_empty
+      for (int s = 0; s < kCStages; ++s) {
+        tc::mbar_init(&bq[s], 1);
+        tc::mbar_init(&bq[kCStages + s], 4);
+      }
+      for (int s = 0; s < G::NB; ++s) {
+        tc::mbar_init(&bq[2 * kCStages + s], 1);
+        tc::mbar_init(&bq[2 * kCStages + G::NB + s], 4);
+      }
+    }
+    tc::mbar_init(&h_full[0], G::COLS ? 4 : 1);  // the warps that write
+    tc::mbar_init(&h_full[1], G::COLS ? 4 : 1);
+    tc::mbar_init_fence();
+  }
   __syncthreads();
-}
-
-__global__ void __launch_bounds__(kT) ssd_tc_state(SsdArgs a) {
-  // Wait first: the scan reads x, dt, B and C before its own grid_wait, so
-  // the pass and the scan may launch only once the kernel that wrote them
-  // has finished.
-  tc::grid_wait();
-  tc::launch_dependents();
-  constexpr int LDS = kNS + tc::kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int LDP = a.Pp + tc::kPad;
-  bf16* Xs = reinterpret_cast<bf16*>(smem_raw);  // [2][kR][LDP]
-  bf16* Bs = Xs + 2 * kR * LDP;  // [2][kR][LDS]: B, then hi of B o w
-  bf16* Bl = Bs + 2 * kR * LDS;  // [kR][LDS]: lo of B o w
-  float* dts = reinterpret_cast<float*>(Bl + kR * LDS);  // dt, then w
-  float* cum = dts + a.chunk;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nsl = (a.Np + kNS - 1) / kNS;  // column slices of the state
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z / nsl;
-  const int n0 = blockIdx.z % nsl * kNS, ns = min(kNS, a.Np - n0);
-  const int c0 = c * a.chunk, len = min(a.chunk, a.S - c0);
-  const bf16* X = a.x + b * a.xsb + h * a.xsh + c0 * a.xss;
-  const bf16* Bm = a.Bm + b * a.bsb + c0 * a.bss + n0;
-  const int ntile = (len + kR - 1) / kR;
-
-  auto load = [&](int t) {
-    const int j0 = t * kR, buf = t & 1;
-    tc::load_tile<kT>(Xs + buf * kR * LDP, LDP, X + j0 * a.xss, a.xss, kR,
-                      len - j0, a.P, a.Pp, a.vec, tid);
-    tc::load_tile<kT>(Bs + buf * kR * LDS, LDS, Bm + j0 * a.bss, a.bss, kR,
-                      len - j0, a.N - n0, ns, a.vec, tid);
-  };
-  load(0);
-  tc::cp_async_commit();
-  chunk_cumsum(a, a.dt + b * a.dsb + h * a.dsh, a.A[h], c0, len, dts, cum);
-  const float cum_end = cum[len - 1];
-  for (int t = tid; t < len; t += kT) dts[t] *= __expf(cum_end - cum[t]);
-
-  // contrib[p][n] = sum_j x[j][p] (B o w)[j][n]; warp w owns rows 16w.. of P
-  const int wp = warp * 16;
-  float acc[kNS / 8][4];
-#pragma unroll
-  for (int n = 0; n < kNS / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int t = 0; t < ntile; ++t) {
-    if (t + 1 < ntile) load(t + 1);
-    tc::cp_async_commit();
-    tc::cp_async_wait<1>();
-    __syncthreads();
-    bf16* Bb = Bs + (t & 1) * kR * LDS;
-    const bf16* Xb = Xs + (t & 1) * kR * LDP;
-    const int j0 = t * kR;
-    for (int e = tid; e < kR * (ns / 8); e += kT) {  // 8 columns at a time
-      const int r = e / (ns / 8), n = (e - r * (ns / 8)) * 8;
-      const float w = j0 + r < len ? dts[j0 + r] : 0.f;
-      uint4 raw = *reinterpret_cast<const uint4*>(Bb + r * LDS + n), hi, lo;
-      const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      uint32_t* ho = reinterpret_cast<uint32_t*>(&hi);
-      uint32_t* lw = reinterpret_cast<uint32_t*>(&lo);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 v = __bfloat1622float2(in[i]);
-        tc::pack_split(v.x * w, v.y * w, ho[i], lw[i]);
-      }
-      *reinterpret_cast<uint4*>(Bb + r * LDS + n) = hi;
-      *reinterpret_cast<uint4*>(Bl + r * LDS + n) = lo;
-    }
-    __syncthreads();
-    if (wp < a.Pp) {
-#pragma unroll
-      for (int kk = 0; kk < kR / 16; ++kk) {
-        uint32_t xa[4], bh[kNS / 16][4], bl[kNS / 16][4];
-        tc::ldsm_x4_t(xa, tc::a_kmajor(Xb, LDP, wp, kk * 16, lane));
-#pragma unroll
-        for (int np = 0; np < kNS / 16; ++np) {
-          if (np * 16 < ns) {
-            tc::ldsm_x4_t(bh[np], tc::b_kmajor(Bb, LDS, kk * 16, np * 16, lane));
-            tc::ldsm_x4_t(bl[np], tc::b_kmajor(Bl, LDS, kk * 16, np * 16, lane));
-          }
-        }
-#pragma unroll
-        for (int np = 0; np < kNS / 16; ++np) {
-          if (np * 16 < ns) {
-            tc::mma(acc[2 * np], xa, bh[np][0], bh[np][1]);
-            tc::mma(acc[2 * np + 1], xa, bh[np][2], bh[np][3]);
-            tc::mma(acc[2 * np], xa, bl[np][0], bl[np][1]);
-            tc::mma(acc[2 * np + 1], xa, bl[np][2], bl[np][3]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // buffer t & 1 and Bl are refilled next
-  }
-
-  const long long bhc = ((long long)b * a.H + h) * a.nc + c;
-  float* Hc = a.hs + bhc * a.P * a.N;
-  const int gid = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < kNS / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int p = wp + gid + (e >> 1) * 8, n = n0 + nt * 8 + 2 * tig + (e & 1);
-      if (p < a.P && n < a.N) Hc[p * a.N + n] = acc[nt][e];
-    }
-  }
-  if (tid == 0 && n0 == 0) a.cend[bhc] = cum_end;
-}
-
-__global__ void __launch_bounds__(kPassThreads) ssd_tc_pass(SsdArgs a) {
-  tc::launch_dependents();
-  tc::grid_wait();  // every chunk's contribution is written
-  const int PN = a.P * a.N;
-  const int e = blockIdx.x * kPassThreads + threadIdx.x;
-  if (e >= PN) return;
-  const long long bh = (long long)blockIdx.z * a.H + blockIdx.y;
-  const float* Hc = a.hs + bh * a.nc * PN + e;
-  bf16* hi = a.h_hi + bh * a.nc * PN + e;
-  bf16* lo = a.h_lo + bh * a.nc * PN + e;
-  const float* ce = a.cend + bh * a.nc;
-  // loads of a batch of chunks are issued together, then the chain runs
-  constexpr int kBatch = 8;
-  float hcur = 0.f;
-  for (int c0 = 0; c0 < a.nc; c0 += kBatch) {
-    float contrib[kBatch], dec[kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const bool in = c0 + i < a.nc;
-      contrib[i] = in ? Hc[(long long)(c0 + i) * PN] : 0.f;
-      dec[i] = in ? expf(ce[c0 + i]) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      if (c0 + i < a.nc) {
-        const bf16 h = __float2bfloat16_rn(hcur);
-        hi[(long long)(c0 + i) * PN] = h;
-        lo[(long long)(c0 + i) * PN] =
-            __float2bfloat16_rn(hcur - __bfloat162float(h));
-        hcur = hcur * dec[i] + contrib[i];
-      }
-    }
-  }
-  a.state[bh * PN + e] = hcur;
-}
-
-__global__ void __launch_bounds__(kT) ssd_tc_scan(SsdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int LDP = a.Pp + tc::kPad, LDN = a.Np + tc::kPad;
-  bf16* Cs = reinterpret_cast<bf16*>(smem_raw);  // [kR][LDN]
-  bf16* Bs = Cs + kR * LDN;                      // [2][kR][LDN]
-  bf16* Xs = Bs + 2 * kR * LDN;                  // [2][kR][LDP]
-  bf16* Hh = Xs + 2 * kR * LDP;                  // [Pp][LDN] state, hi
-  bf16* Hl = Hh + a.Pp * LDN;                    // [Pp][LDN] state, lo
-  float* dts = reinterpret_cast<float*>(Hl + a.Pp * LDN);
-  float* cum = dts + a.chunk;
-
   tc::launch_dependents();  // the next kernel's blocks may get ready
-  const int nrt = (a.chunk + kR - 1) / kR;
-  const int c = blockIdx.x / nrt, rt = nrt - 1 - blockIdx.x % nrt;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int c0 = c * a.chunk, len = min(a.chunk, a.S - c0), i0 = rt * kR;
-  if (i0 >= len) {  // a row tile past the end of the last chunk
-    tc::grid_wait();
-    return;
-  }
-  const int iend = min(i0 + kR, len);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const bf16* X = a.x + b * a.xsb + h * a.xsh + c0 * a.xss;
-  const bf16* Bm = a.Bm + b * a.bsb + c0 * a.bss;
+  tc::grid_wait();          // the kernel before has written x, dt, B, C
 
-  tc::load_tile<kT>(Cs, LDN, a.Cm + b * a.csb + (c0 + i0) * a.css, a.css, kR,
-                    iend - i0, a.N, a.Np, a.vec, tid);
-  auto load = [&](int t) {
-    const int j0 = t * kR, buf = t & 1;
-    tc::load_tile<kT>(Bs + buf * kR * LDN, LDN, Bm + j0 * a.bss, a.bss, kR,
-                      iend - j0, a.N, a.Np, a.vec, tid);
-    tc::load_tile<kT>(Xs + buf * kR * LDP, LDP, X + j0 * a.xss, a.xss, kR,
-                      iend - j0, a.P, a.Pp, a.vec, tid);
-  };
-  load(0);
-  tc::cp_async_commit();
-  chunk_cumsum(a, a.dt + b * a.dsb + h * a.dsh, a.A[h], c0, iend, dts, cum);
-
-  const int wr = warp * 16;  // this warp's rows of the tile
-  const int ra = i0 + wr + gid, rb = ra + 8;  // chunk rows of regs 0-1, 2-3
-  float y[kMaxP / 8][4];
-#pragma unroll
-  for (int n = 0; n < kMaxP / 8; ++n) y[n][0] = y[n][1] = y[n][2] = y[n][3] = 0.f;
-
-  for (int t = 0; t <= rt; ++t) {
-    if (t < rt) load(t + 1);
-    tc::cp_async_commit();
-    tc::cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Bb = Bs + (t & 1) * kR * LDN;
-    const bf16* Xb = Xs + (t & 1) * kR * LDP;
-    const int j0 = t * kR;
-
-    // C.B^T for 16 rows x 64 keys
-    float s[kR / 8][4];
-#pragma unroll
-    for (int j = 0; j < kR / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    for (int ks = 0; ks < a.Np / 16; ++ks) {
-      uint32_t ca[4], bb[kR / 16][4];
-      tc::ldsm_x4(ca, tc::a_rowmajor(Cs, LDN, wr, ks * 16, lane));
-#pragma unroll
-      for (int np = 0; np < kR / 16; ++np)
-        tc::ldsm_x4(bb[np], tc::b_nmajor(Bb, LDN, ks * 16, np * 16, lane));
-#pragma unroll
-      for (int np = 0; np < kR / 16; ++np) {
-        tc::mma(s[2 * np], ca, bb[np][0], bb[np][1]);
-        tc::mma(s[2 * np + 1], ca, bb[np][2], bb[np][3]);
-      }
-    }
-    // decay exp(cum_i - cum_j) and dt_j; zero above the diagonal and past
-    // the end (masked before the exp, which would overflow there)
-#pragma unroll
-    for (int j = 0; j < kR / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e < 2 ? ra : rb, jj = j0 + j * 8 + 2 * tig + (e & 1);
-        float v = 0.f;
-        if (jj <= i && i < iend)
-          v = s[j][e] * __expf(cum[i] - cum[jj]) * dts[jj];
-        s[j][e] = v;
-      }
-    }
-    // y += scores . x, the scores as two bf16 terms
-#pragma unroll
-    for (int kk = 0; kk < kR / 16; ++kk) {
-      uint32_t ah[4], al[4];
-      tc::pack_split(s[2 * kk][0], s[2 * kk][1], ah[0], al[0]);
-      tc::pack_split(s[2 * kk][2], s[2 * kk][3], ah[1], al[1]);
-      tc::pack_split(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
-      tc::pack_split(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
-      uint32_t xb[kMaxP / 16][4];
-#pragma unroll
-      for (int np = 0; np < kMaxP / 16; ++np)
-        if (np * 16 < a.Pp)
-          tc::ldsm_x4_t(xb[np], tc::b_kmajor(Xb, LDP, kk * 16, np * 16, lane));
-#pragma unroll
-      for (int np = 0; np < kMaxP / 16; ++np) {
-        if (np * 16 < a.Pp) {
-          tc::mma(y[2 * np], ah, xb[np][0], xb[np][1]);
-          tc::mma(y[2 * np + 1], ah, xb[np][2], xb[np][3]);
-          tc::mma(y[2 * np], al, xb[np][0], xb[np][1]);
-          tc::mma(y[2 * np + 1], al, xb[np][2], xb[np][3]);
+  if (g == Regs<NG>::WARPGROUPS - 1) {
+    // ------------------------------------------------------- producers
+    // thread 32 q of the warpgroup feeds group q's rings, in the order
+    // the group consumes them: each chunk's (B, x) tiles for its state,
+    // then each 64-row tile's C and the (B, x) tiles at and before it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        Regs<NG>::PRODUCER));
+    const int q = (tid - g * kGT) / 32;
+    if ((tid & 31) == 0 && q < NG) {
+      unsigned char* Cs = part(q) + G::C;
+      unsigned char* Bs = part(q) + G::B;
+      unsigned char* Xs = part(q) + G::XS;
+      uint64_t* bq = bars(q);
+      int ic = 0, ib = 0;  // tiles issued into each ring
+      auto load_bx = [&](int row) {
+        const int s = ib % G::NB, r = ib / G::NB;
+        if (r > 0)
+          tc::mbar_wait(&bq[2 * kCStages + G::NB + s], (r - 1) & 1);
+        tc::mbar_expect_tx(&bq[2 * kCStages + s], G::T + G::X);
+        for (int j = 0; j < NP / G::W; ++j)
+          tc::tma_load3(Bs + s * G::T + j * kR * G::RB, &p.bm,
+                        &bq[2 * kCStages + s], j * G::W, row, b);
+        tc::tma_load4(Xs + s * G::X, &p.x, &bq[2 * kCStages + s], p0, h,
+                      row, b);
+        ++ib;
+      };
+      for (int c = q; c < nc; c += NG) {
+        const int c0 = c * p.chunk, len = min(p.chunk, p.S - c0);
+        const int nt = (len + kR - 1) / kR;
+        for (int t = 0; t < nt; ++t) load_bx(c0 + t * kR);
+        for (int rt = 0; rt < nt; ++rt, ++ic) {
+          const int s = ic % kCStages, r = ic / kCStages;
+          if (r > 0) tc::mbar_wait(&bq[kCStages + s], (r - 1) & 1);
+          tc::mbar_expect_tx(&bq[s], G::T);
+          for (int j = 0; j < NP / G::W; ++j)
+            tc::tma_load3(Cs + s * G::T + j * kR * G::RB, &p.cm, &bq[s],
+                          j * G::W, c0 + rt * kR, b);
+          for (int t = 0; t <= rt; ++t) load_bx(c0 + t * kR);
         }
       }
     }
-    __syncthreads();  // buffer t & 1 is refilled at t + 2
-  }
-  tc::cp_async_wait<0>();
+  } else if (g < NG) {
+    // ------------------------------------------------- a chunk group
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        Regs<NG>::COMPUTE));
+    const int t = tid % kGT, wq = t >> 5, lane = tid & 31;
+    const int gid = lane >> 2, tig = lane & 3, bar = 1 + g;
+    unsigned char* Cs = part(g) + G::C;
+    unsigned char* Bs = part(g) + G::B;
+    unsigned char* Xs = part(g) + G::XS;
+    unsigned char* Yw = part(g) + G::Y + wq * 2 * G::YW;  // 2 y tiles
+    float* dts = reinterpret_cast<float*>(part(g) + G::DT);
+    float* cum = dts + kMaxChunk;
+    float4* hcs = reinterpret_cast<float4*>(part(g) + G::HC);
+    double* wtot = reinterpret_cast<double*>(part(g) + G::WT);
+    uint64_t* bq = bars(g);
+    uint64_t *c_full = bq, *c_empty = bq + kCStages;
+    uint64_t *b_full = bq + 2 * kCStages, *b_empty = b_full + G::NB;
+    const uint32_t ca_ = tc::smem_u32(Cs), ba_ = tc::smem_u32(Bs),
+                   xa_ = tc::smem_u32(Xs);
+    const float Ah = p.A[h];
+    const float* DT = p.dt + b * p.dsb + h * p.dsh;
+    float dnext[kPer];  // the group's next chunk's dt, loaded ahead
+    if (g < nc) {
+      const int len = min(p.chunk, p.S - g * p.chunk);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k)
+        dnext[k] = t + k * kGT < len
+                       ? DT[(long long)(g * p.chunk + t + k * kGT) * p.dss]
+                       : 0.f;
+    }
+    int ic = 0, ib = 0, iy = 0;  // tiles consumed, y tiles this warp stored
 
-  // Up to here the block only read the inputs, so it may have run beside
-  // ssd_tc_state and ssd_tc_pass; the entering state needs both done.
-  tc::grid_wait();
-  const bool inter = c > 0;  // the state entering chunk 0 is zero
-  if (inter) {  // y += exp(cum_i) C_i . h_prev
-    const long long off = (((long long)b * a.H + h) * a.nc + c) * a.P * a.N;
-    tc::load_tile<kT>(Hh, LDN, a.h_hi + off, a.N, a.Pp, a.P, a.N, a.Np,
-                      a.vec_h, tid);
-    tc::load_tile<kT>(Hl, LDN, a.h_lo + off, a.N, a.Pp, a.P, a.N, a.Np,
-                      a.vec_h, tid);
-    tc::cp_async_commit();
-    tc::cp_async_wait<0>();
-    __syncthreads();
-    float ti[kMaxP / 8][4];
+    for (int c = g; c < nc; c += NG) {
+      const int c0 = c * p.chunk, len = min(p.chunk, p.S - c0);
+      const int nt = (len + kR - 1) / kR;
+      chunk_cumsum(dnext, Ah, len, p.chunk, dts, cum, wtot, t, bar);
+      if (c + NG < nc) {  // the group's next chunk's dt, while this one runs
+        const int c1 = c0 + NG * p.chunk, len1 = min(p.chunk, p.S - c1);
 #pragma unroll
-    for (int n = 0; n < kMaxP / 8; ++n)
-      ti[n][0] = ti[n][1] = ti[n][2] = ti[n][3] = 0.f;
-    for (int ks = 0; ks < a.Np / 16; ++ks) {
-      uint32_t ca[4];
-      tc::ldsm_x4(ca, tc::a_rowmajor(Cs, LDN, wr, ks * 16, lane));
-#pragma unroll
-      for (int np = 0; np < kMaxP / 16; ++np) {
-        if (np * 16 < a.Pp) {
-          uint32_t hb[4], hl[4];
-          tc::ldsm_x4(hb, tc::b_nmajor(Hh, LDN, ks * 16, np * 16, lane));
-          tc::ldsm_x4(hl, tc::b_nmajor(Hl, LDN, ks * 16, np * 16, lane));
-          tc::mma(ti[2 * np], ca, hb[0], hb[1]);
-          tc::mma(ti[2 * np + 1], ca, hb[2], hb[3]);
-          tc::mma(ti[2 * np], ca, hl[0], hl[1]);
-          tc::mma(ti[2 * np + 1], ca, hl[2], hl[3]);
-        }
+        for (int k = 0; k < kPer; ++k)
+          if (t + k * kGT < len1)
+            dnext[k] = DT[(long long)(c1 + t + k * kGT) * p.dss];
       }
-    }
-    const float ea = ra < iend ? __expf(cum[ra]) : 0.f;
-    const float eb = rb < iend ? __expf(cum[rb]) : 0.f;
-#pragma unroll
-    for (int n = 0; n < kMaxP / 8; ++n) {
-      y[n][0] += ea * ti[n][0];
-      y[n][1] += ea * ti[n][1];
-      y[n][2] += eb * ti[n][2];
-      y[n][3] += eb * ti[n][3];
-    }
-  }
+      const float cum_end = cum[len - 1];
 
-  const long long yss = (long long)a.H * a.P;
-  bf16* Y = a.y + ((long long)b * a.S + c0) * yss + (long long)h * a.P;
+      // the chunk's state contribution x^T (B o w), w_j = dt_j exp(cum_end
+      // - cum_j), all PS state rows in each warp: where COLS, warp wq takes
+      // its NW / 2 16-column steps over every key, else the 16-key step
+      // kk = wq of each tile over every column
+      constexpr int NW = G::NW, NS = NW / 2;
+      float hc[MT][NW][4] = {};
+      for (int tt = 0; tt < nt; ++tt, ++ib) {
+        const int bs = ib % G::NB;
+        tc::mbar_wait(&b_full[bs], (ib / G::NB) & 1);
+        const unsigned char* Bb = Bs + bs * G::T;
+        const unsigned char* Xb = Xs + bs * G::X;
+        const int j0 = tt * kR;
 #pragma unroll
-  for (int n = 0; n < kMaxP / 8; ++n) {
-    const int p = n * 8 + 2 * tig;
+        for (int kk = 0; kk < 4; ++kk) {
+          if (!G::COLS && kk != wq) continue;
+          float w[4];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = half ? rb : ra;
-      if (r >= iend || p >= a.P) continue;
-      bf16* dst = Y + r * yss + p;
-      const float v0 = y[n][2 * half], v1 = y[n][2 * half + 1];
-      if (p + 1 < a.P && (a.P & 1) == 0) {
-        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+          for (int q = 0; q < 4; ++q) {
+            const int j = j0 + kk * 16 + 2 * tig + (q & 1) + (q >> 1) * 8;
+            w[q] = j < len ? dts[j] * __expf(cum_end - cum[j]) : 0.f;
+          }
+          uint32_t xa[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const tc::RC rc = tc::a_kmajor(mt * 16, kk * 16, lane);
+            tc::ldsm_x4_t(xa[mt], Xb + tc::swz(rc.r, rc.c * 2, XRB));
+          }
+#pragma unroll
+          for (int ns = 0; ns < NS; ++ns) {
+            const int np = G::COLS ? wq * NS + ns : ns;
+            uint32_t bb[4], bh[4], bl[4];
+            tc::ldsm_x4_t(bb, at_bc<NP>(Bb, tc::b_kmajor(kk * 16, np * 16,
+                                                          lane)));
+            scale_split(bb[0], w[0], w[1], bh[0], bl[0]);
+            scale_split(bb[1], w[2], w[3], bh[1], bl[1]);
+            scale_split(bb[2], w[0], w[1], bh[2], bl[2]);
+            scale_split(bb[3], w[2], w[3], bh[3], bl[3]);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              tc::mma(hc[mt][2 * ns], xa[mt], bh[0], bh[1]);
+              tc::mma(hc[mt][2 * ns + 1], xa[mt], bh[2], bh[3]);
+              tc::mma(hc[mt][2 * ns], xa[mt], bl[0], bl[1]);
+              tc::mma(hc[mt][2 * ns + 1], xa[mt], bl[2], bl[3]);
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) tc::mbar_arrive(&b_empty[bs]);  // warp done with it
+      }
+      // hsum: this warp's columns where COLS, else the four warps' parts
+      // summed in order
+      float4 hsum[MT * NW];
+      if constexpr (G::COLS) {
+#pragma unroll
+        for (int k = 0; k < MT * NW; ++k)
+          hsum[k] = make_float4(hc[k / NW][k % NW][0], hc[k / NW][k % NW][1],
+                                hc[k / NW][k % NW][2], hc[k / NW][k % NW][3]);
       } else {
-        dst[0] = __float2bfloat16_rn(v0);
-        if (p + 1 < a.P) dst[1] = __float2bfloat16_rn(v1);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+            hcs[(wq * HV + mt * NT + n) * 32 + lane] =
+                make_float4(hc[mt][n][0], hc[mt][n][1], hc[mt][n][2],
+                            hc[mt][n][3]);
+        tc::bar_sync(bar, kGT);
+#pragma unroll
+        for (int k = 0; k < MT * NT; ++k) {
+          float4 v = hcs[k * 32 + lane];
+#pragma unroll
+          for (int q = 1; q < 4; ++q) {
+            const float4 u = hcs[(q * HV + k) * 32 + lane];
+            v.x += u.x;
+            v.y += u.y;
+            v.z += u.z;
+            v.w += u.w;
+          }
+          hsum[k] = v;
+        }
+      }
+      // whether this warp writes the state's 8-column tile n (its own
+      // columns where COLS, else warp 0 all of them)
+      auto writes = [&](int n) { return G::COLS ? n / NW == wq : wq == 0; };
+
+      // the state entering the chunk, from the group that ran the chunk
+      // before (chunk 0: zero); then the state after it, for the next
+      float4 hprev[MT * NT];
+#pragma unroll
+      for (int k = 0; k < MT * NT; ++k)
+        hprev[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c > 0) {  // hand-over c - 1; the one before on its barrier,
+                    // c - 3, this group has waited for or made itself
+        tc::mbar_wait(&h_full[(c - 1) & 1], ((c - 1) >> 1) & 1);
+#pragma unroll
+        for (int k = 0; k < MT * NT; ++k) hprev[k] = slot[k * 32 + lane];
+      }
+      const float dec = __expf(cum_end);
+      tc::bar_sync(bar, kGT);  // the group has read the slot and hcs
+      if (c + 1 < nc) {
+        if (G::COLS || wq == 0) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              if (!writes(n)) continue;
+              const float4 hp = hprev[mt * NT + n];
+              const float4 hs = hsum[mt * NW + n % NW];
+              slot[(mt * NT + n) * 32 + lane] =
+                  make_float4(hp.x * dec + hs.x, hp.y * dec + hs.y,
+                              hp.z * dec + hs.z, hp.w * dec + hs.w);
+            }
+          __syncwarp();
+          if (lane == 0) tc::mbar_arrive(&h_full[c & 1]);
+        }
+      } else {  // the final state, f32
+        float* St = p.state + ((long long)b * p.H + h) * p.P * p.N;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            if (!writes(n)) continue;
+            const float4 hp = hprev[mt * NT + n], hs = hsum[mt * NW + n % NW];
+            const float v[4] = {hp.x * dec + hs.x, hp.y * dec + hs.y,
+                                hp.z * dec + hs.z, hp.w * dec + hs.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int pp = p0 + mt * 16 + gid + (e >> 1) * 8;
+              const int nn = n * 8 + 2 * tig + (e & 1);
+              if (pp < p.P && nn < p.N) St[pp * p.N + nn] = v[e];
+            }
+          }
+      }
+
+      // h_prev as bf16 hi/lo B fragments of C.h^T: k = n, columns p
+      uint32_t hh[NP / 16][PN][2], hl[NP / 16][PN][2];
+#pragma unroll
+      for (int ks = 0; ks < NP / 16; ++ks)
+#pragma unroll
+        for (int pt = 0; pt < PN; ++pt) {
+          const float4 a0 = hprev[(pt >> 1) * NT + 2 * ks];
+          const float4 a1 = hprev[(pt >> 1) * NT + 2 * ks + 1];
+          const bool up = pt & 1;  // rows gid + 8: the float4's z, w
+          tc::pack_split(up ? a0.z : a0.x, up ? a0.w : a0.y, hh[ks][pt][0],
+                         hl[ks][pt][0]);
+          tc::pack_split(up ? a1.z : a1.x, up ? a1.w : a1.y, hh[ks][pt][1],
+                         hl[ks][pt][1]);
+        }
+
+      // y, a 64-row tile at a time: the group's four warps 16 rows each
+      for (int rt = 0; rt < nt; ++rt, ++ic) {
+        const int i0 = rt * kR, w0 = i0 + wq * 16;  // this warp's rows
+        const int cs = ic % kCStages;
+        tc::mbar_wait(&c_full[cs], (ic / kCStages) & 1);
+        const unsigned char* Cb = Cs + cs * G::T;
+        const int ra = w0 + gid, rb = ra + 8;  // chunk rows
+        float y[PN][4] = {};
+
+        for (int tt = 0; tt <= rt; ++tt, ++ib) {
+          const int bs = ib % G::NB;
+          tc::mbar_wait(&b_full[bs], (ib / G::NB) & 1);
+          const int j0 = tt * kR;
+          // C.B^T: 64 rows x 64 keys, wgmma from the C and B tiles (both
+          // K-major over N)
+          float sc[32];
+          tc::wg_fence();
+#pragma unroll
+          for (int ks = 0; ks < NP / 16; ++ks) {
+            const uint32_t pt_ = ks * 16 / G::W, off = (ks * 16 % G::W) * 2;
+            tc::wgmma_ss_n64(
+                sc, tc::desc_k(ca_ + cs * G::T + pt_ * kR * G::RB + off, G::RB),
+                tc::desc_k(ba_ + bs * G::T + pt_ * kR * G::RB + off, G::RB),
+                ks > 0);
+          }
+          tc::wg_commit();
+          tc::wg_wait<0>();
+          tc::fence_regs<32>(sc);
+          // decay exp(cum_i - cum_j) and dt_j; zero above the diagonal
+          // and past the end (selected, never multiplied).  Factored about
+          // the warp's first row r = w0 as exp(cum_i - cum_r) (<= 1, two a
+          // thread) times exp(cum_r - cum_j) dt_j (one a column): both
+          // stay in range for keys j <= r.  The 8-column steps that reach
+          // the warp's own rows take exp(cum_i - cum_j) whole.
+          const float cr = cum[min(w0, len - 1)];
+          const float cia = cum[min(ra, len - 1)];
+          const float cib = cum[min(rb, len - 1)];
+          const float ea = __expf(cia - cr), eb = __expf(cib - cr);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int jc = j0 + j * 8 + 2 * tig;
+            float* v = sc + 4 * j;
+            if (j0 + j * 8 + 7 < w0) {  // every key of the step before r
+              const float g0_ = __expf(cr - cum[jc]) * dts[jc];
+              const float g1_ = __expf(cr - cum[jc + 1]) * dts[jc + 1];
+              v[0] = ra < len ? v[0] * ea * g0_ : 0.f;
+              v[1] = ra < len ? v[1] * ea * g1_ : 0.f;
+              v[2] = rb < len ? v[2] * eb * g0_ : 0.f;
+              v[3] = rb < len ? v[3] * eb * g1_ : 0.f;
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int i = e < 2 ? ra : rb, jj = jc + (e & 1);
+                v[e] = jj <= i && i < len
+                           ? v[e] * __expf((e < 2 ? cia : cib) - cum[jj]) *
+                                 dts[jj]
+                           : 0.f;
+              }
+            }
+          }
+          // y += scores . x, the scores as two bf16 terms (register A
+          // fragments), x MN-major from its tile
+          uint32_t ah[4][4], al[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              tc::pack_split(sc[8 * kk + 2 * q], sc[8 * kk + 2 * q + 1],
+                             ah[kk][q], al[kk][q]);
+          tc::fence_regs<PS / 2>(&y[0][0]);
+          tc::wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t xd = tc::desc_mn(xa_ + bs * G::X + kk * 16 * XRB,
+                                            kR * XRB, XRB);
+            tc::wgmma_rs<PS>(&y[0][0], ah[kk], xd);
+            tc::wgmma_rs<PS>(&y[0][0], al[kk], xd);
+          }
+          tc::wg_commit();
+          tc::wg_wait<0>();
+          tc::fence_regs<PS / 2>(&y[0][0]);
+          __syncwarp();
+          if (lane == 0) tc::mbar_arrive(&b_empty[bs]);  // warp done with it
+        }
+
+        if (c > 0 && w0 < len) {  // y += exp(cum_i) C_i . h_prev
+          float ti[PN][4] = {};
+#pragma unroll
+          for (int ks = 0; ks < NP / 16; ++ks) {
+            uint32_t ca[4];
+            tc::ldsm_x4(ca, at_bc<NP>(Cb, tc::a_rowmajor(wq * 16, ks * 16,
+                                                          lane)));
+#pragma unroll
+            for (int pt = 0; pt < PN; ++pt) {
+              tc::mma(ti[pt], ca, hh[ks][pt][0], hh[ks][pt][1]);
+              tc::mma(ti[pt], ca, hl[ks][pt][0], hl[ks][pt][1]);
+            }
+          }
+          const float ea = ra < len ? __expf(cum[ra]) : 0.f;
+          const float eb = rb < len ? __expf(cum[rb]) : 0.f;
+#pragma unroll
+          for (int pt = 0; pt < PN; ++pt) {
+            y[pt][0] += ea * ti[pt][0];
+            y[pt][1] += ea * ti[pt][1];
+            y[pt][2] += eb * ti[pt][2];
+            y[pt][3] += eb * ti[pt][3];
+          }
+        }
+        __syncwarp();
+        if (lane == 0) tc::mbar_arrive(&c_empty[cs]);
+
+        // this warp's 16 rows of y: by TMA from shared memory (clipped at
+        // S), except rows that end inside a chunk that is not the last,
+        // which the threads store, so that no store reaches the next
+        // chunk's rows (those past the chunk are never written here)
+        if (w0 < len && (w0 + 16 <= len || c0 + len == p.S)) {
+          unsigned char* Yb = Yw + (iy & 1) * G::YW;
+          if (lane == 0) tc::tma_wait_read<1>();  // the store 2 tiles ago
+          __syncwarp();
+#pragma unroll
+          for (int pt = 0; pt < PN; ++pt) {
+            const uint32_t byte = (pt * 8 + 2 * tig) * 2;
+            *reinterpret_cast<__nv_bfloat162*>(Yb + tc::swz(gid, byte, XRB)) =
+                __floats2bfloat162_rn(y[pt][0], y[pt][1]);
+            *reinterpret_cast<__nv_bfloat162*>(
+                Yb + tc::swz(gid + 8, byte, XRB)) =
+                __floats2bfloat162_rn(y[pt][2], y[pt][3]);
+          }
+          tc::fence_async_shared();
+          __syncwarp();
+          if (lane == 0) {
+            tc::tma_store4(&p.y, Yb, p0, h, c0 + w0, b);
+            tc::tma_commit();
+          }
+          ++iy;
+        } else if (w0 < len) {
+          const long long yss = (long long)p.H * p.Py;
+          bf16* Y = p.yp + ((long long)b * p.S + c0) * yss +
+                    (long long)h * p.Py;
+#pragma unroll
+          for (int pt = 0; pt < PN; ++pt)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int r = half ? rb : ra, col = p0 + pt * 8 + 2 * tig;
+              if (r < len && col < p.Py)
+                *reinterpret_cast<__nv_bfloat162*>(Y + r * yss + col) =
+                    __floats2bfloat162_rn(y[pt][2 * half],
+                                          y[pt][2 * half + 1]);
+            }
+        }
       }
     }
+    if (lane == 0) tc::tma_wait_all();
   }
 }
 
-int round16(int v) { return (v + 15) / 16 * 16; }
-
-size_t state_smem(int chunk, int Pp) {  // under 48 KB for every shape
-  return sizeof(bf16) * (2 * kR * (Pp + tc::kPad) + 3 * kR * (kNS + tc::kPad)) +
-         sizeof(float) * 2 * chunk;
+template <int NP, int PS, int NG>
+int launch(const void* x, const float* dt, const float* A, const void* Bm,
+           const void* Cm, void* y, float* state, int B, int S, int H, int P,
+           int N, int chunk, const long long* st3, cudaStream_t st) {
+  using G = Geo<NP, PS, NG>;
+  static const cudaError_t attr = cudaFuncSetAttribute(  // once a process
+      ssd_tc_fwd<NP, PS, NG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::BYTES);
+  if (attr != cudaSuccess) return attr;
+  // st3: x's (b, s, h), dt's (b, s, h), B's (b, s), C's (b, s) strides
+  SsdParams p;
+  p.Py = (P + 7) / 8 * 8;
+  const cuuint64_t xdim[4] = {(cuuint64_t)P, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t xs[3] = {tc::stride_bytes(st3[2], H),
+                            tc::stride_bytes(st3[1], S),
+                            tc::stride_bytes(st3[0], B)};
+  const cuuint64_t ydim[4] = {(cuuint64_t)p.Py, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t ys[3] = {tc::stride_bytes(p.Py, H),
+                            tc::stride_bytes((long long)H * p.Py, S),
+                            tc::stride_bytes((long long)S * H * p.Py, B)};
+  const cuuint32_t xbox[4] = {G::PS, 1, kR, 1};
+  const cuuint32_t ybox[4] = {G::PS, 1, 16, 1};  // one warp's rows
+  const cuuint64_t ndim[3] = {(cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t bs[2] = {tc::stride_bytes(st3[7], S),
+                            tc::stride_bytes(st3[6], B)};
+  const cuuint64_t cs[2] = {tc::stride_bytes(st3[9], S),
+                            tc::stride_bytes(st3[8], B)};
+  const cuuint32_t bbox[3] = {(cuuint32_t)G::W, kR, 1};
+  int rc;
+  if ((rc = tc::encode_map(&p.x, 4, x, xdim, xs, xbox, G::XRB)) ||
+      (rc = tc::encode_map(&p.y, 4, y, ydim, ys, ybox, G::XRB)) ||
+      (rc = tc::encode_map(&p.bm, 3, Bm, ndim, bs, bbox, G::RB)) ||
+      (rc = tc::encode_map(&p.cm, 3, Cm, ndim, cs, bbox, G::RB)))
+    return tc::kMapError + rc;
+  p.dt = dt;
+  p.A = A;
+  p.state = state;
+  p.yp = static_cast<bf16*>(y);
+  p.S = S;
+  p.H = H;
+  p.P = P;
+  p.N = N;
+  p.chunk = chunk;
+  p.dsb = st3[3];
+  p.dss = st3[4];
+  p.dsh = st3[5];
+  return tc::launch_pdl(ssd_tc_fwd<NP, PS, NG>,
+                        dim3((P + PS - 1) / PS, H, B),
+                        dim3(Regs<NG>::WARPGROUPS * kGT),
+                        G::BYTES, st, p);
 }
 
-size_t scan_smem(int chunk, int Pp, int Np) {
-  return sizeof(bf16) * (3 * kR * (Np + tc::kPad) + 2 * kR * (Pp + tc::kPad) +
-                         2 * Pp * (Np + tc::kPad)) +
-         sizeof(float) * 2 * chunk;
+// Columns of P a block: 16 where N > 32 (the state slice [PS, N] in
+// registers), else 32, or, at N <= 16 (whose smaller tiles leave the shared
+// memory for it), 64 when blocks of 32 would outnumber the SMs (B=2 at
+// hymba's widths: one wave of 100 blocks, not two of 200)
+int ps_for(int np, int B, int H, int P, int sms) {
+  if (np > 32) return 16;
+  const bool waves = (long long)B * H * ((P + 31) / 32) > sms;
+  return np == 16 && waves ? 64 : 32;
 }
 
+// Chunk groups of a block: three where N <= 16 and PS = 32 (the blocks are
+// fewest, so each needs the most overlap, and the tiles leave the shared
+// memory for it), else two
+constexpr int ng_for(int np, int ps) {
+  return np == 16 && ps == 32 ? 3 : 2;
+}
 
 }  // namespace
 
-// work: B*H*nc*(2*P*N + 1) floats of scratch, nc = ceil(S / chunk)
+// x [B,S,H,P], B and C [B,S,N] (bf16, last dim contiguous, every base
+// 16-byte aligned and the stride of every other dim of more than one
+// element a multiple of 8 elements: TMA, tc::tma_ready, which the
+// launcher sees to), dt [B,S,H] and A [H] f32; y
+// [B,S,H,round8(P)] bf16 and the state [B,H,P,N] f32, both contiguous.
+// `work` is not used (one launch keeps no scratch).
 extern "C" int ssd_forward_tc(const void* x, const float* dt, const float* A,
                               const void* Bm, const void* Cm, void* y,
                               float* state, float* work, int B, int S, int H,
@@ -466,56 +723,28 @@ extern "C" int ssd_forward_tc(const void* x, const float* dt, const float* A,
                               long long dss, long long dsh, long long bsb,
                               long long bss, long long csb, long long css,
                               void* stream) {
+  (void)work;
   if (B < 1 || H < 1 || S < 1 || P < 1 || P > kMaxP || N < 1 || N > kMaxN ||
-      chunk < 1 || chunk > 1024)
+      chunk < 1 || chunk > kMaxChunk)
     return cudaErrorInvalidValue;
-  const int nc = (S + chunk - 1) / chunk;
-  const bool vec = tc::aligned16(x, xsb, xss, xsh) &&
-                   tc::aligned16(Bm, bsb, bss, 0) &&
-                   tc::aligned16(Cm, csb, css, 0);
-  // contributions (f32), the split entering states (2 x bf16), cend
-  const long long X = (long long)B * H * nc * P * N;
-  bf16* h_hi = reinterpret_cast<bf16*>(work + X);
-  SsdArgs a{static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(Bm),
-            static_cast<const bf16*>(Cm), static_cast<bf16*>(y), state, work,
-            h_hi, h_hi + X, work + 2 * X, S, H, P, N, chunk, nc,
-            round16(P), round16(N), xsb, xss, xsh, dsb, dss, dsh, bsb, bss,
-            csb, css, vec, N % 8 == 0};
+  const long long nx[3] = {B, S, H}, nb[3] = {B, S, 1};
+  if (!tc::tma_ready(x, {xsb, xss, xsh}, nx) ||
+      !tc::tma_ready(Bm, {bsb, bss, 0}, nb) ||
+      !tc::tma_ready(Cm, {csb, css, 0}, nb) || !tc::tma_ready(y, {0, 0, 0}, nb))
+    return cudaErrorMisalignedAddress;
+  const long long st3[10] = {xsb, xss, xsh, dsb, dss, dsh, bsb, bss, csb, css};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  static const cudaError_t attr = cudaFuncSetAttribute(  // once a process
-      ssd_tc_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)scan_smem(1024, kMaxP, kMaxN));
-  if (attr != cudaSuccess) return attr;
-  const size_t sm1 = state_smem(chunk, a.Pp);
-  const size_t sm3 = scan_smem(chunk, a.Pp, a.Np);
-  cudaError_t err;
-
-  // Every kernel launches early (programmatic dependent launch): the
-  // scan's intra-chunk work overlaps the two kernels before it, and each
-  // kernel's blocks are placed while the kernel before drains.
-  cudaLaunchAttribute pdl;
-  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.stream = st;
-  cfg.attrs = &pdl;
-  cfg.numAttrs = 1;
-  const int nsl = (a.Np + kNS - 1) / kNS;
-  cfg.gridDim = dim3(nc, H, B * nsl);
-  cfg.blockDim = dim3(kT);
-  cfg.dynamicSmemBytes = sm1;
-  if ((err = cudaLaunchKernelEx(&cfg, ssd_tc_state, a)) != cudaSuccess)
-    return err;
-  cfg.gridDim = dim3((P * N + kPassThreads - 1) / kPassThreads, H, B);
-  cfg.blockDim = dim3(kPassThreads);
-  cfg.dynamicSmemBytes = 0;
-  if ((err = cudaLaunchKernelEx(&cfg, ssd_tc_pass, a)) != cudaSuccess)
-    return err;
-  const int nrt = (chunk + kR - 1) / kR;
-  cfg.gridDim = dim3(nc * nrt, H, B);
-  cfg.blockDim = dim3(kT);
-  cfg.dynamicSmemBytes = sm3;
-  if ((err = cudaLaunchKernelEx(&cfg, ssd_tc_scan, a)) != cudaSuccess)
-    return err;
-  return cudaGetLastError();
+  const int np = N <= 16 ? 16 : N <= 32 ? 32 : N <= 64 ? 64 : 128;
+  const int ps = ps_for(np, B, H, P, tc::sm_count());
+#define SSD_LAUNCH(NP_, PS_)                                          \
+  launch<NP_, PS_, ng_for(NP_, PS_)>(x, dt, A, Bm, Cm, y, state, B, S, H, \
+                                     P, N, chunk, st3, st)
+  switch (np * 1000 + ps) {
+    case 16064: return SSD_LAUNCH(16, 64);
+    case 16032: return SSD_LAUNCH(16, 32);
+    case 32032: return SSD_LAUNCH(32, 32);
+    case 64016: return SSD_LAUNCH(64, 16);
+    default: return SSD_LAUNCH(128, 16);
+  }
+#undef SSD_LAUNCH
 }

@@ -17,6 +17,13 @@ and v are zero-padded along the head dim, the scale stays
 ``1/sqrt(hd)`` of the unpadded dim, and the output is sliced back.  Zero
 columns add nothing to q·k, so the scores, the softcap and the softmax
 are unchanged, and the padded columns of v come out as zeros.
+
+The bf16 kernel reads q, k and v and writes the output by TMA, which needs
+16-byte aligned bases and strides (``_tma``): a view that breaks the rule
+is copied (``_tma.copies`` counts it); nothing else changes route.  Its
+grid is chosen by the C launcher (``fa_plan`` in the source); :func:`plan`
+is that rule's mirror for tests and logs, and launches nothing
+(``chip_smoke.py`` holds it to the C rule on the card).
 """
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ import math
 
 import torch
 
-from .. import _build
+from .. import _build, _tma
 
 launches = 0
 launches_by_dtype = {"bfloat16": 0, "float32": 0}
@@ -39,6 +46,34 @@ HEAD_DIMS = (16, 32, 64, 80, 128)   # 80: hubert-xlarge
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGTYPES = [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _P]
+
+
+# the bf16 kernel's block: 128 query rows, (position, head) pairs of up to
+# MAX_PACKED query heads of one KV group
+BLOCK_ROWS, MAX_PACKED = 128, 16
+
+
+def plan(B: int, Sq: int, H: int, KV: int, sms: int) -> dict:
+    """The bf16 kernel's grid for these shapes on a card of ``sms`` SMs, a
+    mirror of ``fa_plan`` in ``csrc/flash_attention_tc.cu`` (which is what
+    launches) for tests and logs: ``heads`` query heads of one KV group a
+    block (the largest divisor of H/KV up to MAX_PACKED), ``positions``
+    positions of them (its BLOCK_ROWS rows), and ``split`` when those
+    blocks are fewer than the SMs: then a block takes half the rows and
+    its two consumer warpgroups split the key tiles."""
+    if B < 1 or Sq < 1 or KV < 1 or H % KV:
+        raise ValueError(f"no plan for B={B} Sq={Sq} H={H} KV={KV}")
+    G = H // KV
+    heads = max(d for d in range(1, min(G, MAX_PACKED) + 1) if G % d == 0)
+
+    def blocks(rows):
+        npos = rows // heads
+        return B * KV * (G // heads) * -(-Sq // npos), npos
+    n, npos = blocks(BLOCK_ROWS)
+    split = n < sms
+    if split:
+        n, npos = blocks(BLOCK_ROWS // 2)
+    return dict(split=split, heads=heads, positions=npos, blocks=n)
 
 
 def padded_head_dim(hd: int) -> int:
@@ -113,6 +148,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=None):
     hd = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     q, k, v = pad_head_dim(q, k, v)
+    if q.dtype == torch.bfloat16:     # TMA reads them
+        q, k, v = (_tma.operand(t) for t in (q, k, v))
     B, Sq, H, hdp = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, hdp), dtype=q.dtype, device=q.device)

@@ -2,12 +2,18 @@
 
 The port's counterpart of ``repro.kernels.ssd.kernel``: it takes tensors
 on the card only, checks what the kernels accept, allocates the outputs
-and scratch and launches on the current stream.  The dtype of xs, B and C
+and launches on the current stream.  The dtype of xs, B and C
 alone chooses the kernel (:func:`entry`): bf16 runs on the tensor cores
-(``csrc/ssd_tc.cu``, three launches per call), f32 on the CUDA cores
+(``csrc/ssd_tc.cu``, one launch per call), f32 on the CUDA cores
 (``csrc/ssd.cu``), which keeps the f32 tolerance.  There is no fallback
 from one to the other.  ``launches`` counts the calls that launched, so a
 run can show that its prefill went through the kernels.
+
+The bf16 kernel reads x, B and C and writes y by TMA, which needs 16-byte
+aligned bases and strides (``_tma``): a view that breaks the rule is
+copied, and a P or N that is not a multiple of 8 is zero-padded to one
+(``_tma.copies`` counts both); y is then written [B,S,H,round8(P)] and
+returned sliced to P.
 """
 from __future__ import annotations
 
@@ -15,12 +21,12 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, _tma
 
 launches = 0
 
 # dtype -> (library in csrc/, C entry point); the bf16 entry takes one
-# more pointer, its scratch
+# more pointer, a scratch that its single pass no longer uses (NULL)
 ENTRIES = {torch.bfloat16: ("ssd_tc", "ssd_forward_tc"),
            torch.float32: ("ssd", "ssd_forward")}
 DTYPES = tuple(ENTRIES)
@@ -82,18 +88,20 @@ def ssd(xs, dt, A, B_, C_, chunk: int = 128):
     _check(xs, dt, A, B_, C_, chunk)
     B, S, H, P = xs.shape
     N = B_.shape[-1]
-    y = torch.empty((B, S, H, P), dtype=xs.dtype, device=xs.device)
+    Py = P
+    if xs.dtype == torch.bfloat16:    # TMA reads x, B, C and writes y
+        Py = _tma.round_up(P)
+        xs = _tma.operand(xs, Py)
+        B_, C_ = (_tma.operand(t, _tma.round_up(N)) for t in (B_, C_))
+    y = torch.empty((B, S, H, Py), dtype=xs.dtype, device=xs.device)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=xs.device)
     ptrs = [t.data_ptr() for t in (xs, dt, A, B_, C_, y, state)]
-    if xs.dtype == torch.bfloat16:   # per-chunk states and decays
-        nc = -(-S // chunk)
-        work = torch.empty(B * H * nc * (2 * P * N + 1), dtype=torch.float32,
-                           device=xs.device)
-        ptrs.append(work.data_ptr())
+    if xs.dtype == torch.bfloat16:
+        ptrs.append(None)
     stream = torch.cuda.current_stream(xs.device).cuda_stream
     rc = _fn(xs.dtype, len(ptrs))(
         *ptrs, B, S, H, P, N, int(chunk), *xs.stride()[:3], *dt.stride(),
         *B_.stride()[:2], *C_.stride()[:2], stream)
     _build.check(rc, "ssd")
     launches += 1
-    return y, state
+    return (y if Py == P else y[..., :P]), state

@@ -110,16 +110,19 @@ def test_cpu_path_never_launches_and_kernel_refuses_cpu():
 
 
 def _split(v):
-    """v as the kernel feeds it to a product: hi + lo, both bf16."""
+    """v as the kernel feeds it to a product: hi and lo, both bf16."""
     hi = v.to(torch.bfloat16).float()
-    return hi + (v - hi).to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
 
 
 def _tc_rounding(xs, dt, A, B_, C_, chunk):
-    """The bf16 tensor-core kernels' arithmetic in plain PyTorch: x, B and
+    """The bf16 tensor-core kernel's arithmetic in plain PyTorch: x, B and
     C enter the products as they are (bf16); the decayed scores, B o w and
-    the state entering a chunk enter as two bf16 terms (``_split``); every
-    product accumulates in f32; y is rounded to bf16 at the end."""
+    the state entering a chunk enter as two bf16 terms (``_split``) whose
+    products are summed apart (the y accumulators of the hi and the lo
+    scores, the state's parts) and added in f32; the chunk's cumsum is
+    taken in f64 and rounded once; y is rounded to bf16 once, at the end
+    of the chunk."""
     Bb, S, H, P = xs.shape
     N = B_.shape[-1]
     x, Bm, Cm = xs.float(), B_.float(), C_.float()
@@ -127,7 +130,7 @@ def _tc_rounding(xs, dt, A, B_, C_, chunk):
     h = torch.zeros((Bb, H, P, N))
     for c0 in range(0, S, chunk):
         sl = slice(c0, min(S, c0 + chunk))
-        cum = torch.cumsum(dt[:, sl] * A, 1)                  # [B,l,H]
+        cum = torch.cumsum((dt[:, sl] * A).double(), 1).float()  # [B,l,H]
         l = cum.shape[1]
         causal = torch.tril(torch.ones(l, l, dtype=torch.bool))[None, :, :,
                                                                 None]
@@ -135,21 +138,25 @@ def _tc_rounding(xs, dt, A, B_, C_, chunk):
         L = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)),
                         0.0)
         cb = torch.einsum("bin,bjn->bij", Cm[:, sl], Bm[:, sl])
-        scores = _split(cb[..., None] * L * dt[:, sl][:, None])
-        y[:, sl] = torch.einsum("bijh,bjhp->bihp", scores, x[:, sl]) + \
-            torch.einsum("bin,bhpn->bihp", Cm[:, sl], _split(h)) * \
-            torch.exp(cum)[..., None]
+        s_hi, s_lo = _split(cb[..., None] * L * dt[:, sl][:, None])
+        h_hi, h_lo = _split(h)
+        inter = (torch.einsum("bin,bhpn->bihp", Cm[:, sl], h_hi)
+                 + torch.einsum("bin,bhpn->bihp", Cm[:, sl], h_lo))
+        y[:, sl] = (torch.einsum("bijh,bjhp->bihp", s_hi, x[:, sl])
+                    + torch.einsum("bijh,bjhp->bihp", s_lo, x[:, sl])
+                    + inter * torch.exp(cum)[..., None])
         w = dt[:, sl] * torch.exp(cum[:, -1:] - cum)          # [B,l,H]
-        Bw = _split(Bm[:, sl][:, :, None, :] * w[..., None])  # [B,l,H,N]
-        h = h * torch.exp(cum[:, -1])[:, :, None, None] + \
-            torch.einsum("bjhp,bjhn->bhpn", x[:, sl], Bw)
+        w_hi, w_lo = _split(Bm[:, sl][:, :, None, :] * w[..., None])
+        h = h * torch.exp(cum[:, -1])[:, :, None, None] + (
+            torch.einsum("bjhp,bjhn->bhpn", x[:, sl], w_hi)
+            + torch.einsum("bjhp,bjhn->bhpn", x[:, sl], w_lo))
     return y.to(xs.dtype), h
 
 
 @pytest.mark.parametrize("S,N,chunk,jax_chunk", [(200, 16, 128, 100),
                                                  (300, 128, 256, 150)])
 def test_tc_rounding_holds_bf16_tolerance(S, N, chunk, jax_chunk):
-    """The bf16 kernels' rounding points at hymba's widths (P=64, N=16,
+    """The bf16 kernel's rounding points at hymba's widths (P=64, N=16,
     chunk 128, S ragged) and at N=128, chunk 256, against the JAX kernel
     in interpret mode at 5e-2.  The JAX kernel asserts S % chunk == 0, so
     its chunk divides S; the function does not depend on the chunk."""
