@@ -6,9 +6,11 @@
 Phases (each raises on failure, and the run then exits non-zero):
   1. setup: card name and power limit, build every CUDA kernel from the
      sources in the checkout (one nvcc per source, all at once, with each
-     kernel's registers and spills from ptxas), TF32 off;
+     kernel's registers and spills from ptxas), the count of TF32 tensor-core
+     instructions in each f32 library (``cuobjdump -sass``; none fails the
+     run), TF32 off for PyTorch's own matmuls;
   2. kernels: each kernel against its plain PyTorch version on the card,
-     in bf16 (the tensor-core kernels) and f32 (the CUDA-core kernels), at
+     in bf16 (wgmma) and f32 (three TF32 passes of mma.sync), at
      hymba-1.5b's prefill shapes (ragged S, S > window, and S=2048 for
      SSD) and its training shape (B=2 x S=2048, flash at the window and
      the global one), at mamba2-130m's SSD widths (where the f32 kernel is
@@ -175,9 +177,9 @@ kernels' JSON record (the line before the last; the launches add phase
 "device": {...}}`` as the last line.  ``python3 chip_smoke.py --kernels`` runs
 phases 1 and 2 alone, ``--engine`` phase 5, ``--dse`` phase 6, ``--models`` phases 1 and 7, ``--sims`` phase
 8, ``--search`` phase 9, ``--train`` phases 1 and 10, ``--scale`` phase
-11, ``--dryrun`` phase 12; ``--times [ROOT ...]`` times the bf16 kernels
-at TIMED_FA and TIMED_SSD, of this checkout or of each checkout named in
-turn (``compare_times``).
+11, ``--dryrun`` phase 12; ``--times [ROOT ...]`` times the kernels of
+both dtypes at TIMED_FA and TIMED_SSD, of this checkout or of each
+checkout named in turn (``compare_times``).
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -193,8 +195,13 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
-PEAK_OPS_PER_S = {"bfloat16": 989e12,     # dense tensor-core rate
-                  "float32": 67e12}       # CUDA cores, no TF32
+# dense peak rates (data sheet) of the units each dtype's kernels run on:
+# bf16 on the tensor cores; f32 as three TF32 passes on the tensor cores
+# (494.7 TF32 TFLOP/s over 3).  The f32 rows also state the bound at the
+# CUDA cores' f32 rate (``cuda_core_bound``)
+PEAK_OPS_PER_S = {"bfloat16": 989e12,
+                  "float32": 494.7e12 / 3}
+CUDA_CORE_F32_OPS_PER_S = 67e12
 TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
        "ssd": {"float32": 1e-4, "bfloat16": 5e-2}}
 # kernel-test cases of the JAX package (tests/kernels/*.py)
@@ -239,8 +246,8 @@ SSD_TILE_EDGE = [  # B, S, H, P, N, chunk
 ]
 # (B, S, H, P, N, chunk) at mamba2-130m's widths
 MAMBA2_SSD = (1, 512, 24, 64, 128, 256)
-# the bf16 kernels' timed shapes (``--times``): hymba's S=256 and S=1536
-# prompts (window 1024), hubert's hd 80 and the training shape at both
+# the kernels' timed shapes (``--times``, both dtypes): hymba's S=256 and
+# S=1536 prompts (window 1024), hubert's hd 80 and the training shape at both
 # windows; SSD at hymba's S=256, S=2048 and training shapes, mamba2-130m's
 TIMED_FA = [(1, 256, 25, 5, 64, True, 1024, 0.0),
             (1, 1536, 25, 5, 64, True, 1024, 0.0),
@@ -539,11 +546,19 @@ def eager_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, ops, dtype_name):
+def bound(nbytes, ops, dtype_name, ops_per_s=None):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S[dtype_name]
+    t_ops = ops / (ops_per_s or PEAK_OPS_PER_S[dtype_name])
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def cuda_core_bound(nbytes, ops, dtype_name):
+    """For an f32 row: the bound at the CUDA cores' f32 rate, as text."""
+    if dtype_name != "float32":
+        return ""
+    b_ms, b_by = bound(nbytes, ops, dtype_name, CUDA_CORE_F32_OPS_PER_S)
+    return f", at the CUDA cores' 67 TFLOP/s {b_ms:.4f} ms ({b_by})"
 
 
 def nbytes(*ts):
@@ -590,9 +605,30 @@ def setup():
             if ("registers" in line or "spill" in line
                     or "Performance" in line):
                 log(f"  {name} {kernel}: {line.strip()}")
+    check_tf32_sass()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off for matmul and cuDNN (f32 plain versions run in full f32)")
+
+
+def check_tf32_sass():
+    """Evidence that the f32 kernels run on the tensor cores: the TF32
+    HMMA instructions (mma.sync .tf32) in ``cuobjdump -sass`` of each f32
+    library as built; none fails the run."""
+    import shutil
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in ("flash_attention", "ssd"):
+        _build.load(name)
+        sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))],
+                              capture_output=True, text=True, check=True)
+        n = sum(1 for ln in sass.stdout.splitlines()
+                if re.search(r"\bHMMA\.[\w.]*TF32", ln))
+        log(f"  {name} (f32): {n} TF32 tensor-core instructions (HMMA) in "
+            f"its SASS")
+        if n == 0:
+            raise AssertionError(f"{name}: no TF32 HMMA in its SASS; the f32 "
+                                 f"kernel does not run on the tensor cores")
 
 
 # ---------------------------------------------------------------------------
@@ -756,7 +792,9 @@ def check_flash(dev, gen):
                     line += (f", kernel {ms:.4f} ms (eager {eager:.4f}), "
                              f"plain {plain:.4f} ms, "
                              f"sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
-                             f"({b_by}), share of bound {b_ms / ms:.3f}")
+                             f"({b_by}), share of bound {b_ms / ms:.3f}"
+                             + cuda_core_bound(nbytes(q, k, v, out), ops,
+                                               dn))
                     if S == 256 and window == 1024:
                         rec[dn] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                        bound_ms=b_ms, bound_by=b_by)
@@ -825,8 +863,8 @@ def _ssd_witness(args, y, hT, chunk):
 
 def check_ssd(dev, gen):
     """Both kernels against the chunked plain version (and, at the JAX
-    cases, the recurrence) at every case; bf16 times at hymba's and
-    mamba2-130m's shapes; one call's output fed straight into the next;
+    cases, the recurrence) at every case; both kernels' times at hymba's
+    and mamba2-130m's shapes; one call's output fed straight into the next;
     B=1 operands with a batch stride of 999, read in place.
     Returns the JSON record of each dtype's kernel, from hymba's S=256
     case."""
@@ -874,18 +912,18 @@ def check_ssd(dev, gen):
                     err[dn] = max(err.get(dn, 0.0), e)
                 if tag == "mamba2-130m" and dtype == torch.float32:
                     line += _ssd_witness(args, y, hT, chunk)
-                if tag in ("hymba", "mamba2-130m") and (dtype == torch.bfloat16
-                                          or (S == 256 and tag == "hymba")):
+                if tag in ("hymba", "mamba2-130m"):
                     ms = time_ms(lambda: ssdk.ssd(*args, chunk=chunk))
                     plain = time_ms(lambda: ssd_chunked(*args, chunk),
                                     reps=5)
                     eager = eager_ms(lambda: ssdk.ssd(*args, chunk=chunk))
-                    b_ms, b_by = bound(nbytes(*args, y, hT),
-                                       _ssd_ops(B, S, H, P, N, chunk), dn)
+                    ops = _ssd_ops(B, S, H, P, N, chunk)
+                    b_ms, b_by = bound(nbytes(*args, y, hT), ops, dn)
                     line += (f", kernel {ms:.4f} ms (eager {eager:.4f}), "
                              f"plain {plain:.4f} ms, "
                              f"bound {b_ms:.4f} ms ({b_by}), share of bound "
-                             f"{b_ms / ms:.3f}")
+                             f"{b_ms / ms:.3f}"
+                             + cuda_core_bound(nbytes(*args, y, hT), ops, dn))
                     if tag == "hymba" and S == 256:
                         rec[dn] = dict(ms=ms, plain_ms=plain, library_ms=None,
                                        bound_ms=b_ms, bound_by=b_by)
@@ -932,10 +970,10 @@ def check_ssd(dev, gen):
 
 
 def kernel_times():
-    """The bf16 kernels' device times (``time_ms``) at TIMED_FA and
-    TIMED_SSD, through the ``repro_torch`` that ``sys.path`` finds first,
-    each case's output held against its plain version.  Returns {case:
-    ms}."""
+    """The kernels' device times (``time_ms``) at TIMED_FA and TIMED_SSD,
+    bf16 and f32, through the ``repro_torch`` that ``sys.path`` finds
+    first, each case's output held against its plain version.  Returns
+    {case: ms}; an f32 case's key ends in "f32"."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fak
@@ -945,28 +983,33 @@ def kernel_times():
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    bf, out = torch.bfloat16, {}
-    for B, S, H, KV, hd, causal, window, cap in TIMED_FA:
-        q, k, v = _qkv(gen, dev, B, S, H, KV, hd, bf)
-        kw = dict(causal=causal, window=window, cap=cap)
-        compare("flash_attention", fak.flash_attention(q, k, v, **kw),
-                flash_attention_ref(q, k, v, **kw), "bfloat16")
-        out[f"flash {(B, S, H, KV, hd, causal, window, cap)}"] = time_ms(
-            lambda: fak.flash_attention(q, k, v, **kw))
-    for B, S, H, P, N, chunk in TIMED_SSD:
-        args = (torch.randn((B, S, H, P), generator=gen, device=dev).to(bf),
-                F.softplus(torch.randn((B, S, H), generator=gen, device=dev)
-                           - 1.0),
-                -torch.exp(torch.randn((H,), generator=gen, device=dev)
-                           * 0.3),
-                torch.randn((B, S, N), generator=gen, device=dev).to(bf),
-                torch.randn((B, S, N), generator=gen, device=dev).to(bf))
-        y, hT = ssdk.ssd(*args, chunk=chunk)
-        y_ref, h_ref = ssd_chunked(*args, chunk)
-        compare("ssd", y, y_ref, "bfloat16")
-        compare("ssd", hT, h_ref, "bfloat16")
-        out[f"ssd {(B, S, H, P, N, chunk)}"] = time_ms(
-            lambda: ssdk.ssd(*args, chunk=chunk))
+    out = {}
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, " f32")):
+        dn = str(dtype).split(".")[1]
+        for B, S, H, KV, hd, causal, window, cap in TIMED_FA:
+            q, k, v = _qkv(gen, dev, B, S, H, KV, hd, dtype)
+            kw = dict(causal=causal, window=window, cap=cap)
+            compare("flash_attention", fak.flash_attention(q, k, v, **kw),
+                    flash_attention_ref(q, k, v, **kw), dn)
+            out[f"flash {(B, S, H, KV, hd, causal, window, cap)}{tag}"] = \
+                time_ms(lambda: fak.flash_attention(q, k, v, **kw))
+        for B, S, H, P, N, chunk in TIMED_SSD:
+            args = (torch.randn((B, S, H, P), generator=gen,
+                                device=dev).to(dtype),
+                    F.softplus(torch.randn((B, S, H), generator=gen,
+                                           device=dev) - 1.0),
+                    -torch.exp(torch.randn((H,), generator=gen, device=dev)
+                               * 0.3),
+                    torch.randn((B, S, N), generator=gen,
+                                device=dev).to(dtype),
+                    torch.randn((B, S, N), generator=gen,
+                                device=dev).to(dtype))
+            y, hT = ssdk.ssd(*args, chunk=chunk)
+            y_ref, h_ref = ssd_chunked(*args, chunk)
+            compare("ssd", y, y_ref, dn)
+            compare("ssd", hT, h_ref, dn)
+            out[f"ssd {(B, S, H, P, N, chunk)}{tag}"] = time_ms(
+                lambda: ssdk.ssd(*args, chunk=chunk))
     return out
 
 
@@ -4862,8 +4905,8 @@ def main():
         print(json.dumps({"train": check_train(dev)}), flush=True)
         return 0
     if sys.argv[1:2] == ["--times"]:
-        # the bf16 kernels' times at TIMED_FA and TIMED_SSD, of this
-        # checkout or of each checkout named
+        # the kernels' times at TIMED_FA and TIMED_SSD, bf16 and f32, of
+        # this checkout or of each checkout named
         compare_times(sys.argv[2:] or [str(ROOT)])
         return 0
     if sys.argv[1:] == ["--dryrun"]:

@@ -156,43 +156,6 @@ __device__ __forceinline__ void scale_split(uint32_t v, float w0, float w1,
   tc::pack_split(f.x * w0, f.y * w1, hi, lo);
 }
 
-// The chunk's dt (from `dnext`, prefetched) into dts and the inclusive
-// cumsum of dt*A into cum, by one warpgroup (thread t of kGT, barrier
-// `bar`).  The sum is taken in f64 and rounded once: |cum| reaches the
-// hundreds within a chunk, where the order of an f32 scan moves
-// exp(cum_i - cum_j) by ~1e-4.  Each thread sums a run of ceil(chunk/kGT)
-// rows, then the runs are scanned across the warps.
-__device__ __forceinline__ void chunk_cumsum(const float (&dnext)[kPer],
-                                             float Ah, int n, int chunk,
-                                             float* dts, float* cum,
-                                             double* wtot, int t, int bar) {
-  const int lane = t & 31, warp = t >> 5;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k)
-    if (t + k * kGT < n) dts[t + k * kGT] = dnext[k];
-  tc::bar_sync(bar, kGT);
-  const int per = (chunk + kGT - 1) / kGT, t0 = t * per;
-  double own = 0.0;
-  for (int i = 0; i < per && t0 + i < n; ++i)
-    own += (double)(dts[t0 + i] * Ah);
-  double v = own;  // inclusive scan of the runs within the warp
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const double u = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v += u;
-  }
-  if (lane == 31) wtot[warp] = v;
-  tc::bar_sync(bar, kGT);
-  double run = __shfl_up_sync(0xffffffffu, v, 1);  // the runs before
-  if (lane == 0) run = 0.0;
-  for (int w = 0; w < warp; ++w) run += wtot[w];
-  for (int i = 0; i < per && t0 + i < n; ++i) {
-    run += (double)(dts[t0 + i] * Ah);
-    cum[t0 + i] = (float)run;
-  }
-  tc::bar_sync(bar, kGT);
-}
-
 // setmaxnreg counts: the producer warpgroup gives registers up to the
 // NG compute warpgroups (each count a multiple of 8; all of them fit the
 // 65,536 registers of the SM)
@@ -322,7 +285,7 @@ __global__ void __launch_bounds__(Regs<NG_>::WARPGROUPS* kGT, 1)
     for (int c = g; c < nc; c += NG) {
       const int c0 = c * p.chunk, len = min(p.chunk, p.S - c0);
       const int nt = (len + kR - 1) / kR;
-      chunk_cumsum(dnext, Ah, len, p.chunk, dts, cum, wtot, t, bar);
+      tc::chunk_cumsum<kGT>(dnext, Ah, len, p.chunk, dts, cum, wtot, t, bar);
       if (c + NG < nc) {  // the group's next chunk's dt, while this one runs
         const int c1 = c0 + NG * p.chunk, len1 = min(p.chunk, p.S - c1);
 #pragma unroll

@@ -1,4 +1,6 @@
-// Building blocks of the port's tensor-core kernels for bf16 (sm_90a).
+// Building blocks of the port's tensor-core kernels for bf16 (sm_90a); the
+// f32 kernels (tf32.cuh) share its barriers, mbarriers, exp2, the SSD cumsum
+// and the 16-byte rule.
 //
 // Hopper's data movement: tensor maps built on the host
 // (cuTensorMapEncodeTiled, reached through the runtime's driver entry
@@ -83,12 +85,13 @@ inline cuuint64_t stride_bytes(long long s, long long n) {
 // Whether TMA reads a bf16 tensor in place: a 16-byte aligned base and,
 // for each outer dim of more than one element, a stride of whole 16 bytes
 // (kernels/_tma.py's `ready` applies the same rule).  s[i], n[i]: stride
-// in elements and size of outer dim i.
+// in elements and size of outer dim i; `per` elements make 16 bytes (4 for
+// the f32 kernels' 16-byte cp.async copies, which follow the same rule).
 inline bool tma_ready(const void* p, const long long (&s)[3],
-                      const long long (&n)[3]) {
+                      const long long (&n)[3], int per = 8) {
   if (reinterpret_cast<uintptr_t>(p) % 16) return false;
   for (int i = 0; i < 3; ++i)
-    if (n[i] > 1 && s[i] % 8) return false;
+    if (n[i] > 1 && s[i] % per) return false;
   return true;
 }
 
@@ -193,6 +196,45 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const long long t0 = clock64();
   while (!mbar_try(bar, parity))
     if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// SSD (ssd_tc.cu, ssd.cu): the chunk's dt (from `dnext`, prefetched) into
+// dts and the inclusive cumsum of dt*A into cum, by one group of kGT
+// threads (thread t, barrier `bar`; wtot: a double a warp).  The sum is
+// taken in f64 and rounded once: |cum| reaches the hundreds within a chunk,
+// where the order of an f32 scan moves exp(cum_i - cum_j) by ~1e-4.  Each
+// thread sums a run of ceil(chunk/kGT) rows, then the runs are scanned
+// across the warps.
+template <int kGT, int kPer>
+__device__ __forceinline__ void chunk_cumsum(const float (&dnext)[kPer],
+                                             float Ah, int n, int chunk,
+                                             float* dts, float* cum,
+                                             double* wtot, int t, int bar) {
+  const int lane = t & 31, warp = t >> 5;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k)
+    if (t + k * kGT < n) dts[t + k * kGT] = dnext[k];
+  tc::bar_sync(bar, kGT);
+  const int per = (chunk + kGT - 1) / kGT, t0 = t * per;
+  double own = 0.0;
+  for (int i = 0; i < per && t0 + i < n; ++i)
+    own += (double)(dts[t0 + i] * Ah);
+  double v = own;  // inclusive scan of the runs within the warp
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double u = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += u;
+  }
+  if (lane == 31) wtot[warp] = v;
+  tc::bar_sync(bar, kGT);
+  double run = __shfl_up_sync(0xffffffffu, v, 1);  // the runs before
+  if (lane == 0) run = 0.0;
+  for (int w = 0; w < warp; ++w) run += wtot[w];
+  for (int i = 0; i < per && t0 + i < n; ++i) {
+    run += (double)(dts[t0 + i] * Ah);
+    cum[t0 + i] = (float)run;
+  }
+  tc::bar_sync(bar, kGT);
 }
 
 // shared-memory writes by threads, made visible to TMA and wgmma

@@ -3,10 +3,11 @@
 The port's counterpart of ``repro.kernels.flash_attention.kernel``: it
 takes tensors on the card only, checks what the kernels accept, allocates
 the output and launches on the current stream.  The dtype alone chooses
-the kernel (:func:`entry`): bf16 runs on the tensor cores
-(``csrc/flash_attention_tc.cu``), f32 on the CUDA cores
-(``csrc/flash_attention.cu``), which keeps the f32 tolerance.  There is no
-fallback from one to the other.  ``launches`` counts the calls that
+the kernel (:func:`entry`): bf16 runs on the tensor cores by wgmma
+(``csrc/flash_attention_tc.cu``), f32 on the tensor cores in three TF32
+passes of mma.sync (``csrc/flash_attention.cu``), which keep the f32
+tolerance that one TF32 pass misses.  There is no fallback from one to the
+other, nor to the plain version.  ``launches`` counts the calls that
 launched, so a run can show that its prefill went through the kernels;
 ``launches_by_dtype`` splits the same count by the dtype (the kernel) that
 launched.
@@ -20,7 +21,9 @@ are unchanged, and the padded columns of v come out as zeros.
 
 The bf16 kernel reads q, k and v and writes the output by TMA, which needs
 16-byte aligned bases and strides (``_tma``): a view that breaks the rule
-is copied (``_tma.copies`` counts it); nothing else changes route.  Its
+is copied (``_tma.copies`` counts it); nothing else changes route.  The
+f32 kernel reads any view in place (by cp.async, 16 bytes at a time where
+k's and v's rows are 16-byte aligned, else 4).  Its
 grid is chosen by the C launcher (``fa_plan`` in the source); :func:`plan`
 is that rule's mirror for tests and logs, and launches nothing
 (``chip_smoke.py`` holds it to the C rule on the card).

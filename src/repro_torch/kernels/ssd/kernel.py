@@ -3,17 +3,20 @@
 The port's counterpart of ``repro.kernels.ssd.kernel``: it takes tensors
 on the card only, checks what the kernels accept, allocates the outputs
 and launches on the current stream.  The dtype of xs, B and C
-alone chooses the kernel (:func:`entry`): bf16 runs on the tensor cores
-(``csrc/ssd_tc.cu``, one launch per call), f32 on the CUDA cores
-(``csrc/ssd.cu``), which keeps the f32 tolerance.  There is no fallback
-from one to the other.  ``launches`` counts the calls that launched, so a
-run can show that its prefill went through the kernels.
+alone chooses the kernel (:func:`entry`): bf16 runs on the tensor cores by
+wgmma (``csrc/ssd_tc.cu``), f32 on the tensor cores in three TF32 passes
+of mma.sync (``csrc/ssd.cu``), which keep the f32 tolerance that one TF32
+pass misses; each is one launch per call.  There is no fallback from one
+to the other, nor to the plain version.  ``launches`` counts the calls
+that launched, so a run can show that its prefill went through the
+kernels.
 
 The bf16 kernel reads x, B and C and writes y by TMA, which needs 16-byte
 aligned bases and strides (``_tma``): a view that breaks the rule is
 copied, and a P or N that is not a multiple of 8 is zero-padded to one
 (``_tma.copies`` counts both); y is then written [B,S,H,round8(P)] and
-returned sliced to P.
+returned sliced to P.  The f32 kernel reads any view in place (by
+cp.async, 16 bytes at a time where the rows are 16-byte aligned, else 4).
 """
 from __future__ import annotations
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _tf32 import mm_tf32
 from repro.kernels.flash_attention import kernel as jax_fa
 from repro.kernels.flash_attention.ref import \
     flash_attention_ref as jax_fa_ref
@@ -181,8 +182,90 @@ def test_tc_rounding_holds_bf16_tolerance(S, window, block):
     _close(out, kern, DTYPES["bfloat16"][2])
 
 
+def _tf32x3(q, k, v, *, causal=True, window=0, cap=0.0, passes=3):
+    """The f32 kernel's arithmetic in plain PyTorch: Q.K^T and P.V in
+    ``passes`` TF32 passes (``mm_tf32``) over key tiles of 64 (32 at head
+    dim 128); scores in the log2 domain (times scale * log2 e, an f32
+    product; the softcap as tanh(s scale (1 / cap)) cap log2 e), masked scores
+    -1e30; online softmax with f32 running max, denominator and
+    accumulator; output acc / max(l, 1e-30).  The kernel's split mode (two
+    halves of each key tile, their softmax states merged at the end)
+    changes only the order of f32 sums."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    bk = 64 if hd <= 80 else 32
+    scale = 1.0 / np.sqrt(hd)
+    sl2 = float(np.float32(scale) * np.float32(1.4426950408889634))
+    qf = q.float().transpose(1, 2)                             # [B,H,S,hd]
+    kf = k.float().repeat_interleave(G, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, 2).transpose(1, 2)
+    qp = torch.arange(S)[:, None]
+    m = torch.full((B, H, S), -1e30)
+    l, acc = torch.zeros((B, H, S)), torch.zeros((B, H, S, hd))
+    for k0 in range(0, S, bk):
+        kp = torch.arange(k0, min(S, k0 + bk))[None, :]
+        s = mm_tf32(qf, kf[:, :, k0:k0 + bk].transpose(-1, -2), passes)
+        if cap:
+            s = torch.tanh(s * np.float32(scale) * np.float32(1 / cap)) \
+                * cap * 1.4426950408889634
+        else:
+            s = s * sl2
+        ok = torch.ones_like(s, dtype=torch.bool)
+        if causal:
+            ok = ok & (kp <= qp)
+        if window > 0:
+            ok = ok & (qp - kp < window)
+        s = torch.where(ok, s, -1e30)
+        m2 = torch.maximum(m, s.amax(-1))
+        p = torch.exp2(s - m2[..., None])
+        c = torch.exp2(m - m2)
+        l = l * c + p.sum(-1)
+        acc = acc * c[..., None] + mm_tf32(p, vf[:, :, k0:k0 + bk], passes)
+        m = m2
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2)
+
+
+# the JAX kernel tests' cases, and hymba's widths (25 query and 5 KV heads
+# of 64) at a ragged S (block 200, the JAX kernel's S % block rule) and with
+# a window
+TF32X3_CASES = [(c, 128) for c in CASES] + [
+    ((1, 200, 25, 5, 64, True, 0, 0.0), 200),
+    ((1, 384, 25, 5, 64, True, 100, 0.0), 128)]
+
+
+@pytest.mark.parametrize("case,block", TF32X3_CASES)
+def test_tf32x3_rounding_holds_f32_tolerance(case, block):
+    """The f32 kernel's three TF32 passes, emulated, against the JAX kernel
+    in interpret mode at the f32 tolerance 2e-5."""
+    B, S, H, KV, hd, causal, window, cap = case
+    (jq, jk, jv), (q, k, v) = _both(_mk(B, S, H, KV, hd, seed=S + hd),
+                                    "float32")
+    kern = jax_fa.flash_attention(jq, jk, jv, n_kv_heads=KV, causal=causal,
+                                  window=window, cap=cap, block_q=block,
+                                  block_k=block, interpret=True)
+    out = _tf32x3(q, k, v, causal=causal, window=window, cap=cap)
+    _close(out, kern, DTYPES["float32"][2])
+
+
+def test_one_tf32_pass_misses_f32_tolerance():
+    """Why three passes: one TF32 pass (big.big alone) at hymba's widths
+    misses the f32 tolerance by far more than the three passes' margin."""
+    (jq, jk, jv), (q, k, v) = _both(_mk(1, 256, 25, 5, 64, seed=7),
+                                    "float32")
+    kern = np.asarray(jax_fa.flash_attention(
+        jq, jk, jv, n_kv_heads=5, causal=True, window=1024, interpret=True))
+    tol = DTYPES["float32"][2]
+
+    def ratio(out):   # largest |out - kern| / (tol + tol |kern|)
+        return float(np.max(np.abs(out.numpy() - kern)
+                            / (tol + tol * np.abs(kern))))
+    assert ratio(_tf32x3(q, k, v, window=1024, passes=1)) > 4.0
+    assert ratio(_tf32x3(q, k, v, window=1024)) < 0.5
+
+
 def test_dtype_alone_routes_to_a_kernel():
-    """bf16 goes to the tensor-core kernel and f32 to the CUDA-core one;
+    """bf16 goes to the wgmma kernel and f32 to the three-pass TF32 one;
     each entry names a C function that its source exports.  Both dtypes
     are still refused on the CPU, and nothing launches."""
     from repro_torch.kernels import _build
@@ -210,14 +293,16 @@ def test_dtype_alone_routes_to_a_kernel():
 
 def test_head_dim_80_is_built_by_both_kernels():
     """hubert-xlarge's head dim: the launcher takes it, and both sources
-    instantiate it (the f32 kernel with 8 lanes a row, a power of two, as
-    its shuffles need); other head dims still raise, with no fallback."""
+    instantiate it (the f32 kernel in k-steps of 8, as mma.sync m16n8k8
+    takes them, so every built head dim is a multiple of 8); other head
+    dims still raise, with no fallback."""
     from repro_torch.kernels import _build
     assert 80 in fa_kernel.HEAD_DIMS and 48 not in fa_kernel.HEAD_DIMS
     for dtype in fa_kernel.DTYPES:
         src = (_build.CSRC / f"{fa_kernel.entry(dtype)[0]}.cu").read_text()
         assert "case 80:" in src and "launch_hd<80>" in src
-    assert "HD / 16 : 8" in (_build.CSRC / "flash_attention.cu").read_text()
+    assert all(d % 8 == 0 for d in fa_kernel.HEAD_DIMS)
+    assert "KS = HD / 8" in (_build.CSRC / "flash_attention.cu").read_text()
 
 
 # head dims the kernels are not built for run zero-padded to the next one

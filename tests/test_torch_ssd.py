@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _tf32 import mm_tf32
 from repro.kernels.ssd import kernel as jax_ssd
 from repro.kernels.ssd.ref import ssd_chunked as jax_chunked
 from repro.kernels.ssd.ref import ssd_ref as jax_seq
@@ -168,8 +169,80 @@ def test_tc_rounding_holds_bf16_tolerance(S, N, chunk, jax_chunk):
     _close(hT, hj, DTYPES["bfloat16"][2])
 
 
+def _tf32x3(xs, dt, A, B_, C_, chunk, passes=3):
+    """The f32 kernel's arithmetic in plain PyTorch, chunk by chunk: the
+    cumsum of dt*A in f64, rounded once; w = dt exp(cum_end - cum); the
+    state's x^T (B o w), C.B^T, the decayed scores' product with x and
+    C.h_prev each in ``passes`` TF32 passes (``mm_tf32``); the decay
+    exp(cum_i - cum_j) and dt_j applied to C.B^T, zero above the diagonal;
+    y = scores.x + exp(cum) C.h_prev; h = h exp(cum_end) + x^T (B o w)."""
+    Bb, S, H, P = xs.shape
+    N = B_.shape[-1]
+    x = xs.float().permute(0, 2, 1, 3)                         # [B,H,S,P]
+    y = torch.empty((Bb, H, S, P))
+    h = torch.zeros((Bb, H, P, N))
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, min(S, c0 + chunk))
+        cum = torch.cumsum((dt[:, sl] * A).double(), 1).float() \
+            .transpose(1, 2)                                    # [B,H,l]
+        l = cum.shape[-1]
+        Bc, Cc, xc = B_[:, sl].float(), C_[:, sl].float(), x[:, :, sl]
+        dtc = dt[:, sl].transpose(1, 2)                         # [B,H,l]
+        w = dtc * torch.exp(cum[..., -1:] - cum)
+        hc = mm_tf32(xc.transpose(-1, -2), Bc[:, None] * w[..., None],
+                      passes)                                   # [B,H,P,N]
+        cb = mm_tf32(Cc, Bc.transpose(-1, -2), passes)[:, None]  # [B,1,l,l]
+        causal = torch.tril(torch.ones(l, l, dtype=torch.bool))
+        seg = cum[..., :, None] - cum[..., None, :]
+        sc = torch.where(causal, cb * torch.exp(torch.where(causal, seg, 0.0))
+                         * dtc[..., None, :], 0.0)
+        inter = mm_tf32(Cc[:, None].expand(-1, H, -1, -1),
+                         h.transpose(-1, -2), passes)           # [B,H,l,P]
+        y[:, :, sl] = mm_tf32(sc, xc, passes) + \
+            torch.exp(cum)[..., None] * inter
+        h = h * torch.exp(cum[..., -1])[..., None, None] + hc
+    return y.permute(0, 2, 1, 3), h
+
+
+# the JAX kernel tests' cases, hymba's widths (P=64, N=16, chunk 128; 4 of
+# its 50 heads) at a ragged S (the JAX kernel's chunk divides S; the
+# function does not depend on it), and mamba2-130m's N=128, chunk 256
+TF32X3_CASES = [(c, c[-1]) for c in CASES] + [
+    ((1, 300, 4, 64, 16, 128), 100),
+    ((1, 256, 2, 64, 128, 256), 256)]
+
+
+@pytest.mark.parametrize("case,jax_chunk", TF32X3_CASES)
+def test_tf32x3_rounding_holds_f32_tolerance(case, jax_chunk):
+    """The f32 kernel's three TF32 passes, emulated, against the JAX kernel
+    in interpret mode at the f32 tolerance 1e-4."""
+    B, S, H, P, N, chunk = case
+    j, t = _both(_mk(B, S, H, P, N, seed=S + N), "float32")
+    y, hT = _tf32x3(*t, chunk)
+    yj, hj = jax_ssd.ssd(*j, chunk=jax_chunk, interpret=True)
+    assert y.shape == (B, S, H, P) and hT.shape == (B, H, P, N)
+    _close(y, yj, DTYPES["float32"][2])
+    _close(hT, hj, DTYPES["float32"][2])
+
+
+def test_one_tf32_pass_misses_f32_tolerance():
+    """Why three passes: one TF32 pass (big.big alone) at hymba's widths
+    misses the f32 tolerance by far more than the three passes' margin."""
+    j, t = _both(_mk(1, 256, 4, 64, 16, seed=11), "float32")
+    yj, hj = (np.asarray(a) for a in jax_ssd.ssd(*j, chunk=128,
+                                                  interpret=True))
+    tol = DTYPES["float32"][2]
+
+    def ratio(out):   # largest |out - ref| / (tol + tol |ref|) of y, state
+        return max(float(np.max(np.abs(o.numpy() - r)
+                                / (tol + tol * np.abs(r))))
+                   for o, r in zip(out, (yj, hj)))
+    assert ratio(_tf32x3(*t, 128, passes=1)) > 4.0
+    assert ratio(_tf32x3(*t, 128)) < 0.5
+
+
 def test_dtype_alone_routes_to_a_kernel():
-    """bf16 goes to the tensor-core kernels and f32 to the CUDA-core one;
+    """bf16 goes to the wgmma kernel and f32 to the three-pass TF32 one;
     each entry names a C function that its source exports.  Both dtypes
     are still refused on the CPU, and nothing launches."""
     from repro_torch.kernels import _build
