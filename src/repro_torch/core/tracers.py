@@ -9,7 +9,8 @@ post-simulation analysis (Daisen export reads it back).
 
 Counterpart of ``repro.core.tracers``: host Python, copied, apart from
 :func:`flush_engine_trace`, which copies the engine's counters off the
-device once.
+device once, and :class:`ProfilerRangeTracer`, which puts a wall-clock
+domain's tasks on ``torch.profiler``'s timeline.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import sqlite3
 import threading
 from collections import defaultdict
 
-from .tracing import Task
+from .tracing import Task, current_task
 
 
 class _Base:
@@ -190,6 +191,45 @@ class DBTracer(_Base):
             q += " WHERE name=?"
             args = (name,)
         return self._conn.execute(q + " ORDER BY t", args).fetchall()
+
+
+class ProfilerRangeTracer(_Base):
+    """Mirrors a domain's tasks as ``torch.profiler`` ranges named
+    ``<domain>.<category>`` (``train.forward``, ``serve.decode``), so that
+    the profiler's host ops, and the device work they launch, nest under
+    the program's spans on the device trace's clock.
+
+    While no profiler records it checks one flag and does nothing else.
+    It mirrors only tasks on the thread's task stack: a task started with
+    an explicit parent does not nest on the thread, and a range must.
+    Attach it with :func:`profiler_ranges`, once per domain."""
+
+    def __init__(self, prefix: str):
+        from torch.autograd import profiler
+        self.prefix = prefix
+        self._prof = profiler
+        self._open = {}               # task id -> its open range
+
+    def on_start(self, t: Task):
+        if self._prof._is_profiler_enabled and current_task() is t:
+            rf = self._prof.record_function(f"{self.prefix}.{t.category}")
+            rf.__enter__()
+            self._open[t.id] = rf
+
+    def on_end(self, t: Task):
+        if self._open:
+            rf = self._open.pop(t.id, None)
+            if rf is not None:
+                rf.__exit__(None, None, None)
+
+
+def profiler_ranges(domain) -> ProfilerRangeTracer:
+    """The domain's :class:`ProfilerRangeTracer`, attached if it has
+    none: a second one would open every range twice."""
+    for tr, _ in domain._tracers:
+        if isinstance(tr, ProfilerRangeTracer):
+            return tr
+    return domain.attach(ProfilerRangeTracer(domain.name))
 
 
 def flush_engine_trace(sim, state, db: DBTracer, virtual_time_scale=1.0):

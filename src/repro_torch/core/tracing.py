@@ -13,6 +13,13 @@ Two clocks coexist (DESIGN.md §3): host tasks (train steps, checkpoint
 saves, sim runs) use wall time; simulation tasks use virtual time — the
 caller supplies ``time_fn`` per domain.
 
+Tasks that run nested on a thread sit on that thread's task stack, and a
+task started there takes the top of the stack as its parent.  An
+asynchronous task (a served request, its wait in the queue) outlives the
+calls that start and end it: :meth:`TracingDomain.start_task` takes its
+parent explicitly (``parent=``, as Akita's StartTask takes the parent's
+ID) and leaves the stack alone.
+
 Enhanced backtraces (paper Fig. 6b): the active task chain is tracked per
 thread; :func:`format_backtrace` renders root→leaf with category/action/
 location so a crash shows the *architectural* cause chain alongside the
@@ -21,6 +28,7 @@ automatically on exceptions.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -63,12 +71,16 @@ class Task:
 def _stack() -> list[Task]:
     if not hasattr(_local, "stack"):
         _local.stack = []
+        _local.domains = []      # the domain of each task on the stack
     return _local.stack
 
 
 def current_task() -> Task | None:
     s = _stack()
     return s[-1] if s else None
+
+
+_FROM_STACK = object()     # ``parent`` not given: the thread's current task
 
 
 class TracingDomain:
@@ -95,14 +107,27 @@ class TracingDomain:
 
     # -- instrumentation API (paper: StartTask / EndTask / TagTask) --------
     def start_task(self, category: str, action: str, location: str,
-                   time: float | None = None, **details) -> Task:
-        parent = current_task()
+                   time: float | None = None, parent=_FROM_STACK,
+                   push: bool | None = None, **details) -> Task:
+        """Start a task.  Its parent is the thread's current task, unless
+        ``parent`` names it (a :class:`Task`, or ``None`` for a root).  A
+        task is pushed onto the thread's stack unless its parent was given:
+        an asynchronous task ends in another call, and other tasks must
+        not take it as their parent meanwhile.  ``push=True`` pushes a task
+        with a given parent all the same (it runs nested on this thread,
+        for another task's sake)."""
+        if push is None:
+            push = parent is _FROM_STACK
+        if parent is _FROM_STACK:
+            parent = current_task()
         t = Task(id=_new_id(),
                  parent_id=parent.id if parent else "",
                  category=category, action=action, location=location,
                  start=self.time_fn() if time is None else time,
                  details=details)
-        _stack().append(t)
+        if push:
+            _stack().append(t)
+            _local.domains.append(self)
         for tr, f in self._tracers:
             if f is None or f(t):
                 tr.on_start(t)
@@ -110,12 +135,14 @@ class TracingDomain:
 
     def end_task(self, t: Task, time: float | None = None):
         t.end = self.time_fn() if time is None else time
-        s = _stack()
-        if t in s:
+        s, d = _stack(), _local.domains
+        if any(x is t for x in s):
             # pop t and anything mistakenly left above it
-            while s and s[-1] is not t:
+            while s[-1] is not t:
                 s.pop()
+                d.pop()
             s.pop()
+            d.pop()
         for tr, f in self._tracers:
             if f is None or f(t):
                 tr.on_end(t)
@@ -130,8 +157,12 @@ class TracingDomain:
                 tr.on_tag(t, tag)
 
     # -- context-manager sugar ---------------------------------------------
-    def task(self, category: str, action: str, location: str, **details):
-        return _TaskCtx(self, category, action, location, details)
+    def task(self, category: str, action: str, location: str,
+             parent=_FROM_STACK, **details):
+        """A task over a ``with`` block.  It nests on the thread, so it is
+        pushed even where ``parent`` names its parent."""
+        return _TaskCtx(self, category, action, location,
+                        dict(details, parent=parent, push=True))
 
 
 class _TaskCtx:
@@ -151,6 +182,17 @@ class _TaskCtx:
         if self.t is not None:
             self.dom.end_task(self.t)
         return False
+
+
+def subtask(category: str, action: str, location: str, **details):
+    """A task over a ``with`` block under the thread's current task, on
+    that task's domain; nothing where no task is open.  For code that
+    runs inside traced work but holds no domain (the model's layer loop
+    inside a train step's forward or an engine's prefill)."""
+    doms = getattr(_local, "domains", None)
+    if not doms:
+        return contextlib.nullcontext()
+    return doms[-1].task(category, action, location, **details)
 
 
 def format_backtrace(leaf: Task | None = None, header: str = "Backtrace",

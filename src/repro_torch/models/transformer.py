@@ -25,6 +25,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
+from repro_torch.core.tracing import subtask
 from repro_torch.parallel.sharding import constrain
 
 from . import attention as attn_mod
@@ -285,6 +286,8 @@ def forward(params, cfg, batch, mode: str = "train", cache=None,
     ``parallel.sharding.activation_sharding`` (the dry run's trace) each
     layer's input and the logits record their activation specs where the
     reference constrains them; elsewhere ``constrain`` does nothing.
+    Inside a traced task (a train step's ``forward``, an engine's
+    ``prefill`` or ``decode``), each layer is a ``layer`` task under it.
     """
     assert mode in ("train", "prefill", "decode")
     if mode == "decode":
@@ -304,7 +307,8 @@ def forward(params, cfg, batch, mode: str = "train", cache=None,
         c = None if cache is None else {k: t[li] for k, t in cache.items()}
         if li >= n0:        # the reference's scan body; layer0 is outside
             x = constrain(x, "fsdp", None, None)
-        x, nc, a = layer(p, x, q_pos, windows[li], c, cache_len, mode)
+        with subtask("layer", str(li), "model"):
+            x, nc, a = layer(p, x, q_pos, windows[li], c, cache_len, mode)
         ncs.append(nc)
         aux = aux + a
 

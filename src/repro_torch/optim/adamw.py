@@ -93,13 +93,24 @@ def tree_unzip(tree, n: int) -> list:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def sum_squares(grads, acc=0):
+    """``acc`` plus the squares of every leaf, added leaf by leaf in
+    :func:`ref_leaves` order (``acc`` carries the sum across the parts
+    of one tree taken in that order)."""
+    for g in ref_leaves(grads):
+        acc = acc + torch.sum(torch.square(g.float()))
+    return acc
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float, norm=None):
     """-> (grads scaled so their global norm is at most ``max_norm``, the
     norm before scaling).  Squares are summed leaf by leaf in
     :func:`tree_leaves` order, as the reference sums ``jax.tree.leaves``;
     a per-layer tree still sums in another order than the reference's
-    stacked one (f32 differences near 1e-7 of the norm)."""
-    norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in ref_leaves(grads)))
+    stacked one (f32 differences near 1e-7 of the norm).  ``norm`` gives
+    the global norm of a tree that ``grads`` is a part of."""
+    if norm is None:
+        norm = torch.sqrt(sum_squares(grads))
     factor = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return ref_map(lambda g: (g.float() * factor).to(g.dtype), grads), norm

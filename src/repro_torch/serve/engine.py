@@ -8,7 +8,12 @@ place), and one batched decode step advances every active slot.  The loop follow
 Smart-Ticking semantics: when no slot is active it returns without any
 device work, and request arrival wakes it; idle slots ride along.
 
-Every request is a traced task (submit -> prefill -> decode* -> finish).
+Every request is a traced task, from ``submit`` to its last token.  It
+and its ``queue`` task (``submit`` until admission) are asynchronous:
+they take their parents explicitly and stay off the thread's task stack.
+Each ``step()`` is a ``step`` task over its ``prefill`` tasks (a
+request's, as its parent says) and its ``decode`` task; the domain
+mirrors them as ``torch.profiler`` ranges while a profiler records.
 """
 from __future__ import annotations
 
@@ -18,7 +23,8 @@ import itertools
 import numpy as np
 import torch
 
-from repro_torch.core.tracing import TracingDomain
+from repro_torch.core.tracers import profiler_ranges
+from repro_torch.core.tracing import TracingDomain, current_task
 from repro_torch.models import transformer as tfm
 
 
@@ -30,6 +36,7 @@ class Request:
     out: list = dataclasses.field(default_factory=list)
     slot: int = -1
     task: object = None
+    queued: object = None      # its ``queue`` task until admitted
     done: bool = False
 
 
@@ -48,6 +55,7 @@ class ServeEngine:
         self.B, self.S = max_batch, max_len
         self.eos = eos_id
         self.dom = domain or TracingDomain("serve")
+        profiler_ranges(self.dom)
         self.cache = tfm.init_cache(cfg, max_batch, max_len,
                                     device=self.device)
         self.pos = np.zeros(max_batch, np.int32)      # next write position
@@ -64,7 +72,10 @@ class ServeEngine:
             raise ValueError(f"prompt length {len(r.prompt)} not in "
                              f"[1, {self.S - 1}]")
         r.task = self.dom.start_task("request", "serve", "engine",
-                                     rid=r.rid, prompt_len=len(r.prompt))
+                                     parent=current_task(), rid=r.rid,
+                                     prompt_len=len(r.prompt))
+        r.queued = self.dom.start_task("queue", "wait", "engine",
+                                       parent=r.task)
         self.queue.append(r)
         return r.rid
 
@@ -75,8 +86,9 @@ class ServeEngine:
                 continue
             r = self.queue.pop(0)
             r.slot = slot
+            self.dom.end_task(r.queued)
             with self.dom.task("prefill", f"len{len(r.prompt)}",
-                               f"slot{slot}"):
+                               f"slot{slot}", parent=r.task):
                 toks = torch.as_tensor(r.prompt, device=self.device)[None, :]
                 logits, pcache, _ = tfm.forward(self.params, self.cfg,
                                                 {"tokens": toks},
@@ -105,6 +117,10 @@ class ServeEngine:
     def step(self) -> list[Request]:
         """Admit + one batched decode step.  Smart-Ticking: returns without
         touching the device when every slot is idle."""
+        with self.dom.task("step", "step", "engine"):
+            return self._step()
+
+    def _step(self) -> list[Request]:
         self._admit()
         if all(r is None for r in self.active):
             return []

@@ -9,7 +9,9 @@
 * per-step watchdog: steps exceeding ``watchdog_factor``× the EWMA step
   time are flagged;
 * every step, data fetch, save and restore is a task of the paper's task
-  tracing (``repro_torch.core.tracing``).
+  tracing (``repro_torch.core.tracing``), and the step's ``forward``,
+  ``backward`` and ``update`` tasks nest under its ``train`` task on the
+  same domain.
 
 Parameters come from ``init_model(cfg, seed)`` (a seeded
 ``torch.Generator`` on the loop's device) unless the caller passes a
@@ -58,7 +60,7 @@ def train(cfg, data_fn, loop: LoopConfig, hp: TrainHParams | None = None,
     hp = hp or TrainHParams()
     dom = domain or TracingDomain("train")
     mgr = CheckpointManager(loop.ckpt_dir, keep=loop.keep)
-    step_fn = make_train_step(cfg, hp)
+    step_fn = make_train_step(cfg, hp, domain=dom)
 
     if params is None:
         params = tfm.init_model(cfg, loop.seed, device=resolve_device(device),
