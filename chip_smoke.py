@@ -22,7 +22,11 @@ Phases (each raises on failure, and the run then exits non-zero):
      read and as B=1 views whose batch stride is no multiple of 8), the C
      launcher's plan against ``kernel.plan``, and one SSD call's output
      fed straight into the next; kernel, plain and library times beside
-     each bound;
+     each bound; the bf16 backward kernel (``fa_tc_bwd``) at FA_BWD_CASES:
+     the log-sum-exp its forward saves, then dq, dk and dv against the
+     plain backward and autograd of the plain forward, and its times at
+     hymba's two training shapes beside its bound, the plain backward's
+     and SDPA's backward;
   3. serve: a small f32 hybrid model on the card against the same model on
      the CPU (plain versions), which is the f32 kernels' path, then
      hymba-1.5b at full width and depth with seeded random bf16 weights
@@ -113,10 +117,11 @@ Phases (each raises on failure, and the run then exits non-zero):
      capture over the solo runs; (e) CheckpointManager: async saves of
      (b)'s 64-core state and a small bf16/int64/non-finite tree, keep=2
      over 3 saves, restored onto the card bit for bit.
-  10. train: training through the port's entry points (no new kernel: the
-     forward of both kernels runs inside ``FlashAttentionFn`` and
-     ``SSDFn``, whose backward recomputes the plain version, as the JAX
-     package differentiates its XLA path).  (a) Both Functions' gradients
+  10. train: training through the port's entry points (the forward of
+     both kernels runs inside ``FlashAttentionFn`` and ``SSDFn``; flash's
+     bf16 backward is the backward kernel, and the other backwards
+     recompute the plain version, as the JAX package differentiates its
+     XLA path).  (a) Both Functions' gradients
      against autograd of the plain versions at hymba's shapes (S=256, and
      S=2048 where the window of 1024 acts), bf16 and f32, at the kernel
      tests' tolerances of each gradient's max; (b) one f32
@@ -127,12 +132,13 @@ Phases (each raises on failure, and the run then exits non-zero):
      main path: ``repro_torch.train.loop.train`` on hymba-1.5b whole, bf16,
      6 steps of B=2 x S=2048, f32 moments, block remat: finite, falling
      loss, exactly 64 flash and 64 SSD launches a step (forward and
-     recompute), step ms, tokens/s, peak memory, the final checkpoint's
-     bytes and seconds, a profiled step, each kernel's forward against
-     its plain backward; (e) ``python -m repro_torch.launch.train`` on the
-     card; (f) suspect S1 (ROADMAP queue 3): (e)'s run of hymba-smoke in
-     bf16 from parameters drawn on the CPU, on the card and on the CPU,
-     both loss curves within a bf16 ulp of the loss a step.
+     recompute) and 32 of flash's backward kernel, step ms, tokens/s,
+     peak memory, the final checkpoint's bytes and seconds, a profiled
+     step, each kernel's forward against its Function's backward; (e)
+     ``python -m repro_torch.launch.train`` on the card; (f) suspect S1
+     (ROADMAP queue 3): (e)'s run of hymba-smoke in bf16 from parameters
+     drawn on the CPU, on the card and on the CPU, both loss curves
+     within a bf16 ulp of the loss a step.
   11. scale-out: transparent parallel simulation and the campaign cache
      (``repro_torch.core.pdes``, ``dse`` ``shard=``, ``dse.cache``) on a
      mesh naming cuda:0 up to 8 times (``REPRO_TORCH_FORCE_DEVICES``; no
@@ -239,6 +245,37 @@ FA_TILE_EDGE = [  # B, S, H, KV, hd, causal, window, cap
     (2, 300, 25, 5, 64, True, 1024, 0.0),
     (2, 384, 32, 16, 128, True, 4096, 50.0),
 ]
+# the bf16 backward kernel (fa_tc_bwd): hymba's two training shapes at the
+# window and the global layers' full length (timed: ``FA_BWD_TIMED``),
+# phi3's 40/10 heads of 128, hubert's hd 80 and hd 72 padded to it,
+# softcap (gemma2's 50 at hd 128, 30 and 20 below), non-causal with and
+# without a (one-sided) window, ragged S and S below one tile; bf16 only
+FA_BWD_CASES = [  # B, S, H, KV, hd, causal, window, cap
+    (4, 2048, 25, 5, 64, True, 1024, 0.0),
+    (4, 2048, 25, 5, 64, True, 0, 0.0),
+    (1, 8192, 25, 5, 64, True, 1024, 0.0),
+    (1, 8192, 25, 5, 64, True, 0, 0.0),
+    (1, 1024, 40, 10, 128, True, 0, 0.0),
+    (2, 500, 16, 16, 80, False, 0, 0.0),
+    (1, 700, 8, 2, 72, True, 256, 30.0),
+    (2, 384, 32, 16, 128, True, 4096, 50.0),
+    (1, 1030, 25, 5, 64, True, 1024, 0.0),
+    (1, 37, 25, 5, 64, False, 0, 0.0),
+    (2, 300, 4, 1, 32, False, 64, 0.0),
+    (1, 200, 4, 2, 16, True, 0, 20.0),
+]
+FA_BWD_TIMED = FA_BWD_CASES[:4]
+# The backward kernel's dq, dk and dv are held against the plain backward
+# (the same algebra in f32, ``flash_attention_bwd_ref``) and against
+# autograd of the plain forward within the kernel tests' bf16 tolerance of
+# each gradient's largest |ref| (``_held_grads``).  Its reasons: the
+# operands of every product are bf16 (P and dS rounded before dV, dK and
+# dQ), the f32 sums run in another order, and dQ's sum is made by atomic
+# adds whose order changes from run to run.  The log-sum-exp it saves is
+# held to the plain one within FA_LSE_TOL (absolute, in units of the
+# score): f32 from the same bf16 inputs, exp2 and log2 on the
+# special-function unit.
+FA_LSE_TOL = 1e-3
 SSD_TILE_EDGE = [  # B, S, H, P, N, chunk
     (1, 1030, 50, 64, 16, 128),
     (1, 20, 50, 64, 16, 128),
@@ -590,17 +627,21 @@ def setup():
     logs = _build.build_all()
     log(f"built kernels {sorted(logs) or 'none (cached)'} in "
         f"{time.perf_counter() - t:.2f} s")
-    entry = re.compile(r"\d(fa_tc_fwd|fa_fwd|ssd_tc_fwd|ssd_fwd)(\w*)")
+    entry = re.compile(r"\d(fa_tc_fwd_lse|fa_tc_fwd|fa_tc_bwd_pre|"
+                       r"fa_tc_bwd_post|fa_tc_bwd|fa_fwd|ssd_tc_fwd|ssd_fwd)"
+                       r"(\w*)")
     for name, text in logs.items():
         kernel = "?"
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 m = entry.search(line)
-                # template arguments: head dim or padded N, then split
+                # template arguments: head dim or padded N, then split (the
+                # backward's: softcap)
                 targs = re.findall(r"L([ib])(\d+)E", m.group(2)) if m else []
+                flags = (("no cap", "cap") if m and m.group(1) == "fa_tc_bwd"
+                         else ("whole", "split"))
                 kernel = (m.group(1) if m else "?") + (
-                    "<" + ", ".join(v if t == "i" else ("split" if v == "1"
-                                                        else "whole")
+                    "<" + ", ".join(v if t == "i" else flags[v == "1"]
                                     for t, v in targs) + ">" if targs else "")
             if ("registers" in line or "spill" in line
                     or "Performance" in line):
@@ -802,7 +843,126 @@ def check_flash(dev, gen):
     check_flash_tiles(dev, gen)
     for dn in rec:
         rec[dn]["max_abs_err"] = err[dn]
+    rec["bfloat16_bwd"] = check_flash_bwd(dev, gen)
     return rec
+
+
+def _fa_bwd_bound(B, S, H, KV, hd, causal, window):
+    """(ms, by) of one backward: 10 operations a kept pair, head dim and
+    query head; q, out, dout and dq, k, v, dk and dv once at 2 bytes, the
+    log-sum-exp at 4."""
+    nb = 2 * (4 * B * S * H * hd + 4 * B * S * KV * hd) + 4 * B * H * S
+    return bound(nb, 10 * B * H * hd * _attn_pairs(S, causal, window),
+                 "bfloat16")
+
+
+def check_flash_bwd(dev, gen):
+    """The bf16 backward kernel at FA_BWD_CASES: the log-sum-exp that the
+    forward saves against the plain one, then dq, dk and dv against the
+    plain backward (``flash_attention_bwd_ref``, the same algebra in f32)
+    and against autograd of the plain forward, within the kernel tests'
+    bf16 tolerance of each gradient's largest value; dq of two runs
+    compared (atomics).  At
+    FA_BWD_TIMED: the kernel's time beside its bound, the plain backward
+    (the plain forward recomputed and differentiated, the route the
+    Function took before) and SDPA's backward, the library yardstick that
+    the port never calls.  Returns the record of hymba's first case."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_lse_ref, flash_attention_bwd_ref, flash_attention_ref)
+
+    bf = torch.bfloat16
+    rec = {}
+    worst = 0.0
+    for case in FA_BWD_CASES:
+        B, S, H, KV, hd, causal, window, cap = case
+        q, k, v = _qkv(gen, dev, B, S, H, KV, hd, bf)
+        g = torch.randn((B, S, H, hd), generator=gen, device=dev).to(bf)
+        kw = dict(causal=causal, window=window, cap=cap)
+        b0 = fak.bwd_launches
+        out, lse = fak.flash_attention_lse(q, k, v, **kw)
+        grads = fak.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+        again = fak.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+        torch.cuda.synchronize()
+        if fak.bwd_launches - b0 != 2:
+            raise AssertionError(f"flash backward {case}: "
+                                 f"{fak.bwd_launches - b0} launches, want 2")
+        eo = compare("flash_attention", out,
+                     flash_attention_ref(q, k, v, **kw), "bfloat16")
+        e_lse = float((lse - attention_lse_ref(q, k, **kw)).abs().max())
+        if not e_lse <= FA_LSE_TOL:
+            raise AssertionError(f"flash lse {case}: max abs err {e_lse}")
+        plain = flash_attention_bwd_ref(q, k, v, out, lse, g, **kw)
+        e_plain = _held_grads("flash_attention", grads, plain, "bfloat16",
+                              "qkv")
+        del plain
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        auto = torch.autograd.grad(flash_attention_ref(*leaves, **kw),
+                                   leaves, g)
+        e_auto = _held_grads("flash_attention", grads, auto, "bfloat16",
+                             "qkv")
+        del auto, leaves
+        rerun = float((grads[0].float() - again[0].float()).abs().max())
+        worst = max(worst, e_plain, e_auto)
+        line = (f"flash_attention fa_backward_tc B={B} S={S} H={H} KV={KV} "
+                f"hd={hd} causal={causal} window={window} cap={cap} "
+                f"bfloat16: output max_abs_err {eo:.3g}, lse {e_lse:.3g}; "
+                f"dq, dk, dv within {e_plain:.3g} (plain backward) and "
+                f"{e_auto:.3g} (autograd) of their max; dq of two runs "
+                f"differs by {rerun:.3g}")
+        if case in FA_BWD_TIMED:
+            r = _fa_bwd_times(q, k, v, out, lse, g, case)
+            line += (f"; kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f}"
+                     f" ms ({r['bound_by']}), share of bound "
+                     f"{r['bound_ms'] / r['ms']:.3f}, plain backward "
+                     f"{r['plain_ms']:.3f} ms, sdpa backward "
+                     f"{r['library_ms']:.4f} ms")
+            if not rec:
+                rec = dict(r, shape=list(case))
+        log(line)
+        del q, k, v, g, out, lse, grads, again
+        torch.cuda.empty_cache()
+    rec["max_abs_err"] = worst
+    return rec
+
+
+def _fa_bwd_times(q, k, v, out, lse, g, case):
+    """The backward kernel (a CUDA graph of 20 calls), the plain backward
+    (eager, 3 calls) and SDPA's backward (eager, 5 calls: autograd's
+    backward does not capture) at one case."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    B, S, H, KV, hd, causal, window, cap = case
+    kw = dict(causal=causal, window=window, cap=cap)
+    r = dict(ms=time_ms(lambda: fak.flash_attention_bwd(q, k, v, out, lse, g,
+                                                        **kw)))
+    r["bound_ms"], r["bound_by"] = _fa_bwd_bound(B, S, H, KV, hd, causal,
+                                                 window)
+
+    def plain():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        torch.autograd.grad(flash_attention_ref(*leaves, **kw), leaves, g)
+    r["plain_ms"] = eager_ms(plain, reps=3)
+    G = H // KV
+    qh = q.transpose(1, 2).detach().requires_grad_()
+    kh = k.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
+        .requires_grad_()
+    vh = v.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
+        .requires_grad_()
+    gh = g.transpose(1, 2)
+    if 0 < window < S:
+        i = torch.arange(S, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    else:
+        o = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    r["library_ms"] = eager_ms(lambda: torch.autograd.grad(
+        o, (qh, kh, vh), gh, retain_graph=True), reps=5)
+    return r
 
 
 def _ssd_ops(B, S, H, P, N, chunk):
@@ -1010,6 +1170,15 @@ def kernel_times():
             compare("ssd", hT, h_ref, dn)
             out[f"ssd {(B, S, H, P, N, chunk)}{tag}"] = time_ms(
                 lambda: ssdk.ssd(*args, chunk=chunk))
+    if hasattr(fak, "flash_attention_bwd"):   # a checkout with the kernel
+        for case in FA_BWD_TIMED:
+            B, S, H, KV, hd, causal, window, cap = case
+            q, k, v = _qkv(gen, dev, B, S, H, KV, hd, torch.bfloat16)
+            g = torch.randn_like(q)
+            kw = dict(causal=causal, window=window, cap=cap)
+            o, lse = fak.flash_attention_lse(q, k, v, **kw)
+            out[f"flash bwd {case}"] = time_ms(
+                lambda: fak.flash_attention_bwd(q, k, v, o, lse, g, **kw))
     return out
 
 
@@ -1892,10 +2061,10 @@ def check_dse(trimmed=False):
 # phase 7
 # ---------------------------------------------------------------------------
 def _zero_flash_counts():
-    """Set the flash kernel module's launch counts, total and by dtype,
-    to 0."""
+    """Set the flash kernel module's launch counts, total, by dtype and
+    of the backward, to 0."""
     from repro_torch.kernels.flash_attention import kernel as fak
-    fak.launches = 0
+    fak.launches = fak.bwd_launches = 0
     for dn in fak.launches_by_dtype:
         fak.launches_by_dtype[dn] = 0
 
@@ -3706,7 +3875,8 @@ def check_resume(dev):
 
 
 class _StepLaunches:
-    """Tracer: both kernels' launches inside each ``train`` step task."""
+    """Tracer: both kernels' launches inside each ``train`` step task, and
+    the flash backward kernel's (``flash_attention_bwd``)."""
 
     def __init__(self):
         self.steps: list[dict] = []
@@ -3717,7 +3887,8 @@ class _StepLaunches:
     def _now():
         from repro_torch.kernels.flash_attention import kernel as fak
         from repro_torch.kernels.ssd import kernel as ssdk
-        return {"flash_attention": fak.launches, "ssd": ssdk.launches}
+        return {"flash_attention": fak.launches, "ssd": ssdk.launches,
+                "flash_attention_bwd": fak.bwd_launches}
 
     def on_start(self, t):
         if t.category == "train":
@@ -3736,8 +3907,9 @@ class _StepLaunches:
 
 def _kernel_vs_backward(dev, gen, cfg, B, S):
     """Each kernel's forward time (a CUDA graph of 20 calls) against its
-    Function's backward (the plain version recomputed and
-    differentiated, eager) at one hymba layer's training shapes, bf16."""
+    Function's backward (eager) at one hymba layer's training shapes,
+    bf16: flash's backward kernel, the SSD's plain version recomputed and
+    differentiated."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fak
@@ -3771,10 +3943,10 @@ def _kernel_vs_backward(dev, gen, cfg, B, S):
     ssd_bwd = eager_ms(lambda: torch.autograd.grad(y, ins, gy,
                                                    retain_graph=True),
                        reps=3)
-    rec = dict(flash_fwd_ms=fa_fwd, flash_plain_bwd_ms=fa_bwd,
+    rec = dict(flash_fwd_ms=fa_fwd, flash_bwd_ms=fa_bwd,
                ssd_fwd_ms=ssd_fwd, ssd_plain_bwd_ms=ssd_bwd)
     log(f"one hymba layer at B={B} S={S}, bf16: flash kernel forward "
-        f"{fa_fwd:.4f} ms, its plain backward {fa_bwd:.3f} ms; SSD kernel "
+        f"{fa_fwd:.4f} ms, its backward kernel {fa_bwd:.3f} ms; SSD kernel "
         f"forward {ssd_fwd:.4f} ms, its plain backward {ssd_bwd:.3f} ms")
     return rec
 
@@ -3842,7 +4014,8 @@ def train_hymba(dev, gen):
     if not np.mean(losses[-2:]) < np.mean(losses[:2]):
         raise AssertionError(f"hymba training: the loss did not fall: "
                              f"{losses}")
-    want = {"flash_attention": 2 * cfg.n_layers, "ssd": 2 * cfg.n_layers}
+    want = {"flash_attention": 2 * cfg.n_layers, "ssd": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
     if any(s != want for s in spy.steps):
         raise AssertionError(f"hymba training: launches a step "
                              f"{spy.steps}, want {want}")
@@ -4022,6 +4195,7 @@ def check_s1(dev):
     # the card's run goes through both kernels (forward and block-remat
     # recompute, a layer a step), the CPU's through neither
     want = {k: 2 * cfg.n_layers * r["steps"] for k in launches["card"]}
+    want["flash_attention_bwd"] = cfg.n_layers * r["steps"]
     if launches["card"] != want or any(launches["cpu"].values()):
         raise AssertionError(f"S1: launches {launches}, want {want} on the "
                              f"card and none on the CPU")
@@ -4957,6 +5131,12 @@ def main():
              source="src/repro_torch/csrc/ssd_tc.cu", replaces=ssd_src,
              launches=launches["ssd"] + train["d"]["launches"]["ssd"],
              **sd["bfloat16"]),
+        dict(name="flash_attention_tc_bwd", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_tc.cu",
+             replaces="none (XLA's autodiff of blockwise_attention, "
+                      "src/repro/models/attention.py)",
+             launches=train["d"]["launches"]["flash_attention_bwd"],
+             **fa["bfloat16_bwd"]),
         dict(name="flash_attention_f32", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces=fa_src, launches=fa_f32, **fa["float32"]),

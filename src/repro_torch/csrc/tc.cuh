@@ -109,9 +109,9 @@ inline int sm_count() {
 
 // Launch on `st` with programmatic dependent launch: the blocks are placed
 // while the kernel before drains, and wait for it in grid_wait().
-template <typename Kernel, typename Params>
+template <typename Kernel, typename... Args>
 cudaError_t launch_pdl(Kernel kernel, dim3 grid, dim3 block, int smem,
-                       cudaStream_t st, const Params& p) {
+                       cudaStream_t st, const Args&... args) {
   cudaLaunchAttribute pdl;
   pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   pdl.val.programmaticStreamSerializationAllowed = 1;
@@ -122,7 +122,7 @@ cudaError_t launch_pdl(Kernel kernel, dim3 grid, dim3 block, int smem,
   cfg.stream = st;
   cfg.attrs = &pdl;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 

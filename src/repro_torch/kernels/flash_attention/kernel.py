@@ -27,6 +27,15 @@ k's and v's rows are 16-byte aligned, else 4).  Its
 grid is chosen by the C launcher (``fa_plan`` in the source); :func:`plan`
 is that rule's mirror for tests and logs, and launches nothing
 (``chip_smoke.py`` holds it to the C rule on the card).
+
+Training's bf16 path has a backward kernel too (``fa_tc_bwd`` in
+``csrc/flash_attention_tc.cu``): :func:`flash_attention_lse` is the
+forward that also returns each row's log-sum-exp (a second C entry point,
+``fa_forward_tc_lse``, that launches a compile-time variant of the
+forward, so serving's kernel is untouched), and
+:func:`flash_attention_bwd` computes dq, dk and dv from it.
+``bwd_launches`` counts the backward calls that launched; the forward
+with the log-sum-exp counts in ``launches`` as any forward.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from .. import _build, _tma
 
 launches = 0
 launches_by_dtype = {"bfloat16": 0, "float32": 0}
+bwd_launches = 0
 
 # dtype -> (library in csrc/, C entry point); both take the same arguments
 ENTRIES = {torch.bfloat16: ("flash_attention_tc", "fa_forward_tc"),
@@ -49,6 +59,11 @@ HEAD_DIMS = (16, 32, 64, 80, 128)   # 80: hubert-xlarge
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGTYPES = [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _P]
+# bf16 alone: the forward that also writes the log-sum-exp, the backward
+LSE_ENTRY = ("flash_attention_tc", "fa_forward_tc_lse")
+BWD_ENTRY = ("flash_attention_tc", "fa_backward_tc")
+_LSE_ARGTYPES = _ARGTYPES[:-1] + [_P, _P]
+_BWD_ARGTYPES = [_P] * 11 + [_I] * 6 + [_L] * 15 + [_I, _I, _F, _F, _P]
 
 
 # the bf16 kernel's block: 128 query rows, (position, head) pairs of up to
@@ -107,10 +122,10 @@ def entry(dtype: torch.dtype) -> tuple[str, str]:
     return ENTRIES[dtype]
 
 
-def _fn(dtype):
-    lib, name = entry(dtype)
+def _fn(which, argtypes=_ARGTYPES):
+    lib, name = which
     fn = getattr(_build.load(lib), name)
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return fn
 
 
@@ -146,6 +161,21 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=None):
     ``cap`` > 0 a tanh logit softcap; ``scale`` defaults to 1/sqrt(hd).
     A head dim outside ``HEAD_DIMS`` runs padded (:func:`pad_head_dim`).
     """
+    return _forward(q, k, v, causal, window, cap, scale, False)[0]
+
+
+def flash_attention_lse(q, k, v, *, causal=True, window=0, cap=0.0,
+                        scale=None):
+    """:func:`flash_attention` in bf16 that also returns each row's
+    log-sum-exp, f32 [B,H,Sq] (natural log, over the scaled, capped and
+    masked scores): the state :func:`flash_attention_bwd` takes."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the log-sum-exp forward takes bfloat16, not "
+                        f"{q.dtype}")
+    return _forward(q, k, v, causal, window, cap, scale, True)
+
+
+def _forward(q, k, v, causal, window, cap, scale, with_lse):
     global launches
     _check(q, k, v)
     hd = q.shape[-1]
@@ -157,12 +187,68 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=None):
     Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, hdp), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), B, Sq, Sk, H, KV, hdp,
-                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                      *out.stride()[:3], int(bool(causal)), int(window),
-                      float(scale), float(cap), stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Sk, H, KV, hdp, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3], int(bool(causal)),
+            int(window), float(scale), float(cap))
+    lse = None
+    if with_lse:
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        rc = _fn(LSE_ENTRY, _LSE_ARGTYPES)(*args, lse.data_ptr(), stream)
+    else:
+        rc = _fn(entry(q.dtype))(*args, stream)
     _build.check(rc, "flash_attention")
     launches += 1
     launches_by_dtype[str(q.dtype).removeprefix("torch.")] += 1
-    return out[..., :hd]
+    return out[..., :hd], lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
+                        cap=0.0, scale=None):
+    """The bf16 backward kernel: (dq, dk, dv) of :func:`flash_attention`
+    at q, k, v for the upstream gradient ``dout``, from its output
+    ``out`` and log-sum-exp ``lse`` (:func:`flash_attention_lse`).
+    Takes what the bf16 forward takes (any S, window, softcap, GQA, the
+    head dims of ``HEAD_DIMS``, others padded and the gradients sliced
+    back) and raises on anything else; there is no fallback."""
+    global bwd_launches
+    _check(q, k, v)
+    B, Sq, H, hd = q.shape
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the backward kernel takes bfloat16, not {q.dtype}")
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must be a {tuple(q.shape)} "
+                             f"{q.dtype} tensor on {q.device}: "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 [{B},{H},{Sq}] "
+                         f"tensor on {q.device}: {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    Sk, KV = k.shape[1], k.shape[2]
+    q, k, v = pad_head_dim(q, k, v)
+    hdp = q.shape[-1]
+    if hdp != hd:
+        out, dout = (torch.nn.functional.pad(t, (0, hdp - hd))
+                     for t in (out, dout))
+    q, k, v, dout = (_tma.operand(t) for t in (q, k, v, dout))
+    if out.stride(-1) != 1:
+        out = out.contiguous()
+    f32, dev = torch.float32, q.device
+    dsum = torch.empty((B, H, Sq), dtype=f32, device=dev)
+    dq_sum = torch.empty((B, Sq, H, hdp), dtype=f32, device=dev)
+    dq = torch.empty((B, Sq, H, hdp), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, Sk, KV, hdp), dtype=q.dtype, device=dev)
+    dv = torch.empty_like(dk)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _fn(BWD_ENTRY, _BWD_ARGTYPES)(
+        *(t.data_ptr() for t in (q, k, v, out, dout, lse, dsum, dq_sum, dq,
+                                 dk, dv)),
+        B, Sq, Sk, H, KV, hdp, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *out.stride()[:3], *dout.stride()[:3],
+        int(bool(causal)), int(window), float(scale), float(cap), stream)
+    _build.check(rc, "flash_attention backward")
+    bwd_launches += 1
+    return dq[..., :hd], dk[..., :hd], dv[..., :hd]

@@ -116,12 +116,18 @@ def test_flash_plan_rules():
 def test_card_tensors_route_to_the_kernels_never_the_plain_versions(
         monkeypatch):
     """With ``on_card`` true, the model-side entries call the kernel
-    launchers and never the plain versions, with and without a gradient."""
+    launchers and never the plain versions, with and without a gradient
+    (bf16 under a gradient: the forward that saves the log-sum-exp)."""
     calls = []
 
     def kernel_fa(q, k, v, **kw):
         calls.append("flash")
         return torch.zeros_like(q)
+
+    def kernel_fa_lse(q, k, v, **kw):
+        calls.append("flash")
+        return torch.zeros_like(q), torch.zeros(q.shape[0], q.shape[2],
+                                                q.shape[1])
 
     def kernel_ssd(xs, dt, A, B_, C_, chunk=128):
         calls.append("ssd")
@@ -135,6 +141,7 @@ def test_card_tensors_route_to_the_kernels_never_the_plain_versions(
     monkeypatch.setattr(fa_autograd, "on_card", lambda t: True)
     monkeypatch.setattr(ssd_autograd, "on_card", lambda t: True)
     monkeypatch.setattr(fa_kernel, "flash_attention", kernel_fa)
+    monkeypatch.setattr(fa_kernel, "flash_attention_lse", kernel_fa_lse)
     monkeypatch.setattr(ssd_kernel, "ssd", kernel_ssd)
     monkeypatch.setattr(fa_ops, "flash_attention_ref", plain)
     monkeypatch.setattr(fa_autograd, "flash_attention_ref", plain)
